@@ -1,0 +1,53 @@
+"""State conversion between the JAX package and this one.
+
+The system has no weights: its state is the `Settings` and the constant
+tables.  These helpers move them across as plain Python and numpy
+values, so this module imports neither jax nor orb_slam2_tpu.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from orb_slam2_tpu_torch.config import RectificationParams, Settings
+from orb_slam2_tpu_torch.ops import brief
+
+
+def settings_from_jax(s) -> Settings:
+    """This package's Settings with every field of a JAX-package
+    `Settings` (read through dataclasses.asdict)."""
+    d = dataclasses.asdict(s)
+    rect = d.pop("rectification")
+    out = Settings(**d)
+    if rect is not None:
+        out.rectification = RectificationParams(**rect)
+    return out
+
+
+def pattern_from_numpy(p: np.ndarray) -> None:
+    """Install a (256, 4) int32 [x0, y0, x1, y1] BRIEF pattern, e.g.
+    `orb_slam2_tpu.ops.brief.get_pattern()`."""
+    brief.set_pattern(np.asarray(p, np.int32))
+
+
+def features_to_numpy(f, m=None) -> dict:
+    """numpy fields of frontend `Features` (and optionally the matching
+    `StereoMatches`): xy, octave, angle, desc as np.uint32 (the int32
+    words' bits), valid, and u_right, depth when `m` is given."""
+    def np_(t):
+        return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+    out = {
+        "xy": np_(f.xy),
+        "octave": np_(f.octave),
+        "angle": np_(f.angle),
+        "desc": np.ascontiguousarray(np_(f.desc)).view(np.uint32),
+        "valid": np_(f.valid),
+    }
+    if m is not None:
+        out["u_right"] = np_(m.u_right)
+        out["depth"] = np_(m.depth)
+    return out

@@ -1,0 +1,164 @@
+"""Stereo feature matching: batched Hamming row-search + SAD subpixel.
+
+Port of orb_slam2_tpu/ops/stereo.py (ref: Frame::ComputeStereoMatches,
+src/Frame.cc:466-641): all left-right pairs scored at once as a masked
+(N, M) Hamming matrix, subpixel refinement by the 11x11 SAD search over
++/-5 px with a parabola fit, then the median-SAD outlier sweep.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from orb_slam2_tpu_torch.ops import hamming, stereo_cuda
+
+_W = stereo_cuda.W   # SAD half-window (ref: Frame.cc:557 w=5)
+_L = stereo_cuda.L   # search range +/- 5 (ref: Frame.cc:563)
+
+
+class StereoMatches(NamedTuple):
+    u_right: torch.Tensor   # (N,) float32, -1 where unmatched
+    depth: torch.Tensor     # (N,) float32, -1 where unmatched
+    sad: torch.Tensor       # (N,) float32 best SAD (for outlier sweep)
+
+
+def _f32(v, device) -> torch.Tensor:
+    """A 0-dim float32 tensor on `device` (see geometry/camera.py: a CUDA
+    division by a Python scalar multiplies by its reciprocal)."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def match(
+    xy_l: torch.Tensor, octave_l: torch.Tensor, desc_l: torch.Tensor,
+    valid_l: torch.Tensor,
+    xy_r: torch.Tensor, octave_r: torch.Tensor, desc_r: torch.Tensor,
+    valid_r: torch.Tensor,
+    level0_l: torch.Tensor, level0_r: torch.Tensor,
+    scale_factors: torch.Tensor,
+    bf: float, min_disp: float, max_disp: float,
+    plain: bool = False,
+) -> StereoMatches:
+    """Match left keypoints to right keypoints along epipolar rows.
+
+    xy_* are level-0 coords; level0_* the level-0 images for the SAD
+    refinement.  bf, min_disp and max_disp are taken as float32, as the
+    JAX package's traced scalars are.  plain=True runs the SAD search's
+    plain version on any device.
+    """
+    dev = xy_l.device
+    n = xy_l.shape[0]
+    bf = _f32(bf, dev)
+    min_disp = _f32(min_disp, dev)
+    max_disp = _f32(max_disp, dev)
+
+    # --- 1. candidate mask: row band, octave band, disparity window ------
+    vL = xy_l[:, 1:2]
+    vR = xy_r[None, :, 1]
+    r_band = 2.0 * scale_factors[octave_r.long()][None, :]   # Frame.cc:487
+    row_ok = torch.abs(vL - vR) <= r_band
+
+    oct_ok = (
+        (octave_r[None, :] >= octave_l[:, None] - 1)
+        & (octave_r[None, :] <= octave_l[:, None] + 1)
+    )
+
+    disp = xy_l[:, 0:1] - xy_r[None, :, 0]
+    disp_ok = (disp >= min_disp) & (disp <= max_disp)
+
+    mask = row_ok & oct_ok & disp_ok & valid_l[:, None] & valid_r[None, :]
+
+    # --- 2. Hamming best match -------------------------------------------
+    dist = hamming.distance_matrix(desc_l, desc_r)
+    best_idx, best_dist, _ = hamming.masked_argmin(dist, mask)
+    th_orb = (hamming.TH_HIGH + hamming.TH_LOW) // 2   # ref: Frame.cc:479
+    matched = best_dist < th_orb
+
+    # --- 3. SAD subpixel refinement at level 0 ----------------------------
+    h0, w0 = level0_l.shape
+    uR0 = xy_r[best_idx, 0]
+    yc = xy_l[:, 1].int().clamp(_W, h0 - 1 - _W)
+    xl = xy_l[:, 0].int().clamp(_W + _L, w0 - 1 - _W - _L)
+    xr = uR0.int().clamp(_W + _L, w0 - 1 - _W - _L)
+
+    sad = _sad_search(level0_l, level0_r, yc, xl, xr, plain)   # (N, 11)
+
+    best_s = torch.argmin(sad, dim=1)
+    best_sad = sad.amin(dim=1)
+    interior = (best_s > 0) & (best_s < 2 * _L)
+    rows = torch.arange(n, device=dev)
+    im1 = sad[rows, (best_s - 1).clamp(min=0)]
+    ip1 = sad[rows, (best_s + 1).clamp(max=2 * _L)]
+    denom = im1 + ip1 - 2.0 * best_sad
+    delta = torch.where(
+        interior & (denom > 1e-6),
+        0.5 * (im1 - ip1) / denom.clamp(min=1e-6),
+        torch.zeros_like(denom),
+    )
+    delta = delta.clamp(-1.0, 1.0)   # ref rejects |delta|>1 (Frame.cc:600)
+
+    u_right = xr.float() + (best_s - _L).float() + delta
+    disparity = xy_l[:, 0] - u_right
+    good = matched & (disparity >= min_disp) & (disparity < max_disp)
+    # ref: disparity<=0 snapped to 0.01 (Frame.cc:609-612)
+    disparity = torch.where(disparity <= 0, _f32(0.01, dev), disparity)
+
+    neg = torch.full_like(disparity, -1.0)
+    depth = torch.where(good, bf / disparity, neg)
+    u_right_out = torch.where(good, u_right, neg)
+    sad_out = torch.where(good, best_sad, torch.full_like(best_sad, torch.inf))
+    return StereoMatches(u_right_out, depth, sad_out)
+
+
+def _sad_search(level0_l, level0_r, yc, xl, xr,
+                plain: bool = False) -> torch.Tensor:
+    """11 centre-normalised SAD scores per keypoint: the Hopper kernel on
+    a CUDA tensor, the plain gathers on a CPU one or when plain=True."""
+    if plain:
+        return stereo_cuda.sad_strips_plain(level0_l, level0_r, yc, xl, xr)
+    return stereo_cuda.sad_strips(level0_l, level0_r, yc.contiguous(),
+                                  xl.contiguous(), xr.contiguous())
+
+
+def median_sad_filter(m: StereoMatches) -> StereoMatches:
+    """Drop matches with SAD > 1.5 * 1.4 * median (ref: Frame.cc:626-639).
+
+    The median of the finite SADs is jnp.nanmedian's: the mean of the two
+    middle values for an even count (torch.nanmedian takes the lower
+    one), NaN when there are none.  Computed without leaving the device.
+    """
+    finite = torch.isfinite(m.sad)
+    srt = torch.sort(torch.where(finite, m.sad, torch.full_like(m.sad,
+                                                                torch.inf)))[0]
+    cnt = finite.sum()
+    lo = srt[((cnt - 1) // 2).clamp(min=0)]
+    hi = srt[(cnt // 2).clamp(max=srt.shape[0] - 1)]
+    med = torch.where(cnt > 0, lo * 0.5 + hi * 0.5,
+                      torch.full_like(lo, torch.nan))
+    keep = finite & (m.sad <= 1.5 * 1.4 * med)
+    neg = torch.full_like(m.u_right, -1.0)
+    return StereoMatches(
+        torch.where(keep, m.u_right, neg),
+        torch.where(keep, m.depth, neg),
+        torch.where(keep, m.sad, torch.full_like(m.sad, torch.inf)),
+    )
+
+
+def depth_from_rgbd(
+    xy: torch.Tensor, valid: torch.Tensor, depth_img: torch.Tensor,
+    depth_factor: float, bf: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RGB-D depth association (ref: Frame::ComputeStereoFromRGBD
+    src/Frame.cc:643-664): depth lookup at the raw keypoint, synthetic
+    right coordinate u - bf/d."""
+    h, w = depth_img.shape
+    xi = torch.round(xy[:, 0]).long().clamp(0, w - 1)
+    yi = torch.round(xy[:, 1]).long().clamp(0, h - 1)
+    d = depth_img[yi, xi].float() * depth_factor
+    good = valid & (d > 0)
+    neg = torch.full_like(d, -1.0)
+    depth = torch.where(good, d, neg)
+    u_right = torch.where(
+        good, xy[:, 0] - _f32(bf, d.device) / d.clamp(min=1e-6), neg)
+    return u_right, depth
