@@ -14,6 +14,7 @@ import torch
 
 from orb_slam2_tpu_torch.config import RectificationParams, Settings
 from orb_slam2_tpu_torch.ops import brief
+from orb_slam2_tpu_torch.slam.track_step import unpack_track_out
 
 
 def settings_from_jax(s) -> Settings:
@@ -51,3 +52,34 @@ def features_to_numpy(f, m=None) -> dict:
         out["u_right"] = np_(m.u_right)
         out["depth"] = np_(m.depth)
     return out
+
+
+TRACK_INPUTS = ("img_l", "img_r", "scal", "last_f32", "last_desc",
+                "last_oct", "last_angle", "loc_f32", "loc_desc", "loc_excl")
+
+
+def track_inputs_from_numpy(blocks: dict, device="cpu") -> tuple:
+    """The tracking step's inputs, in its argument order, as tensors on
+    `device` from the numpy blocks the JAX step takes (keys as
+    TRACK_INPUTS; loc_excl may be absent).  np.uint32 descriptor blocks
+    become int32 tensors holding the same bits."""
+    out = []
+    for k in TRACK_INPUTS:
+        a = blocks.get(k)
+        if a is None:
+            out.append(None)
+            continue
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out.append(torch.from_numpy(a).to(device))
+    return tuple(out)
+
+
+def track_result_to_numpy(out, n: int, m: int) -> dict:
+    """numpy fields of the port's TrackOut: every TrackResult field, plus
+    `desc` as np.uint32 from the pack's tail."""
+    res, desc = unpack_track_out(out, n, m)
+    d = res._asdict()
+    d["desc"] = desc
+    return d

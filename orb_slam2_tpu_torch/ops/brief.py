@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from orb_slam2_tpu_torch.ops import consts
 from orb_slam2_tpu_torch.ops.orb_pattern import BIT_PATTERN_31
 from orb_slam2_tpu_torch.ops.orientation import RAD
 
@@ -82,7 +83,7 @@ def describe(
     """
     h, w = blurred.shape
     dev = blurred.device
-    pat = torch.as_tensor(_PATTERN, dtype=torch.float32, device=dev)
+    pat = consts.table(_PATTERN, dev, torch.float32)
     px = torch.cat([pat[:, 0], pat[:, 2]])[None]         # (1, 512) x offsets
     py = torch.cat([pat[:, 1], pat[:, 3]])[None]         # (1, 512) y offsets
     rad = angles_deg * RAD

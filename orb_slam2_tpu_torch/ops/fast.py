@@ -113,8 +113,8 @@ def detect_with_fallback(
     cw = -(-w // cell)
     hi_pad = F.pad(hi, (0, cw * cell - w, 0, ch * cell - h))
     cell_has_hi = hi_pad.reshape(ch, cell, cw, cell).amax(dim=(1, 3)) > 0
-    per_pixel_hi = cell_has_hi.repeat_interleave(cell, 0).repeat_interleave(
-        cell, 1)[:h, :w]
+    per_pixel_hi = cell_has_hi[:, None, :, None].expand(
+        ch, cell, cw, cell).reshape(ch * cell, cw * cell)[:h, :w]
     return torch.where(per_pixel_hi, hi, lo)
 
 

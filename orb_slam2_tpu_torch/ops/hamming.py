@@ -12,6 +12,7 @@ import torch
 MAX_DIST = 256  # all-ones distance used for masked-out entries
 TH_LOW = 50     # ref: src/ORBmatcher.cc:38
 TH_HIGH = 100   # ref: src/ORBmatcher.cc:37
+HISTO_LENGTH = 30  # rotation-consistency bins, ref: src/ORBmatcher.cc:39
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -64,3 +65,33 @@ def masked_argmin(
     d2 = d.scatter(1, best_idx[:, None], MAX_DIST)
     second = d2.amin(dim=1)
     return best_idx, best, second
+
+
+def rotation_histogram_filter(
+    angle_q: torch.Tensor,
+    angle_t: torch.Tensor,
+    matched: torch.Tensor,
+    n_keep: int = 3,
+) -> torch.Tensor:
+    """Keep matches whose angle difference falls in the 3 dominant bins.
+
+    The rot-histogram + ComputeThreeMaxima pattern of every matcher (ref:
+    src/ORBmatcher.cc:1601-1645); bins with < 0.1 * max1 count are
+    dropped.  Returns a bool mask over matches.  The top bins are taken
+    by a stable descending sort, so equal counts go to the lower bin as
+    in jax.lax.top_k (torch.topk promises no order among ties).
+    """
+    rot = angle_q - angle_t
+    rot = torch.where(rot < 0, rot + 360.0, rot)
+    bin_idx = torch.floor(rot * (HISTO_LENGTH / 360.0)).long()
+    bin_idx = torch.where(bin_idx == HISTO_LENGTH, 0, bin_idx)
+    counts = torch.zeros(HISTO_LENGTH, dtype=torch.int64,
+                         device=matched.device).scatter_add(
+        0, bin_idx, matched.long())
+    top_val, top_idx = torch.sort(counts, descending=True, stable=True)
+    top_val, top_idx = top_val[:n_keep], top_idx[:n_keep]
+    thresh = (0.1 * top_val[0]).long()   # float32, then truncated
+    keep_bin = torch.zeros(HISTO_LENGTH, dtype=torch.bool,
+                           device=matched.device).scatter(
+        0, top_idx, top_val > thresh)
+    return matched & keep_bin[bin_idx]

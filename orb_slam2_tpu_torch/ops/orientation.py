@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from orb_slam2_tpu_torch.ops import consts
+
 HALF_PATCH = 15
 DEG = float(np.float32(180.0 / np.pi))    # jnp.degrees' float32 factor
 RAD = float(np.float32(np.pi / 180.0))    # jnp.radians' float32 factor
@@ -54,6 +56,10 @@ def circular_mask() -> np.ndarray:
 
 _MASK = circular_mask()
 _DX = (np.arange(31) - HALF_PATCH).astype(np.float32)
+# the moments' weights, mask * x and mask * y (exact in float64); copied
+# to a device once, by consts.table
+_W10 = _MASK.astype(np.float64) * _DX[None, :]
+_W01 = _MASK.astype(np.float64) * _DX[:, None]
 
 
 def ic_angles(
@@ -73,10 +79,10 @@ def ic_angles(
     rows = y[:, None] + d[None, :]                       # (N, 31)
     cols = x[:, None] + d[None, :]
     patches = img[rows[:, :, None], cols[:, None, :]].double()  # (N, 31, 31)
-    mask = torch.as_tensor(_MASK, dtype=torch.float64, device=dev)
-    dxs = torch.as_tensor(_DX, dtype=torch.float64, device=dev)
-    m10 = (patches * (mask * dxs[None, :])).sum((1, 2)).float()
-    m01 = (patches * (mask * dxs[:, None])).sum((1, 2)).float()
+    w10 = consts.table(_W10, dev, torch.float64)
+    w01 = consts.table(_W01, dev, torch.float64)
+    m10 = (patches * w10).sum((1, 2)).float()
+    m01 = (patches * w01).sum((1, 2)).float()
     ang = torch.atan2(m01, m10) * DEG
     ang = torch.where(ang < 0, ang + 360.0, ang)
     return torch.where(valid, ang, torch.zeros_like(ang))

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from orb_slam2_tpu_torch.ops import hamming, stereo_cuda
+from orb_slam2_tpu_torch.ops import consts, hamming, stereo_cuda
 
 _W = stereo_cuda.W   # SAD half-window (ref: Frame.cc:557 w=5)
 _L = stereo_cuda.L   # search range +/- 5 (ref: Frame.cc:563)
@@ -22,12 +22,6 @@ class StereoMatches(NamedTuple):
     u_right: torch.Tensor   # (N,) float32, -1 where unmatched
     depth: torch.Tensor     # (N,) float32, -1 where unmatched
     sad: torch.Tensor       # (N,) float32 best SAD (for outlier sweep)
-
-
-def _f32(v, device) -> torch.Tensor:
-    """A 0-dim float32 tensor on `device` (see geometry/camera.py: a CUDA
-    division by a Python scalar multiplies by its reciprocal)."""
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
 def match(
@@ -44,14 +38,15 @@ def match(
 
     xy_* are level-0 coords; level0_* the level-0 images for the SAD
     refinement.  bf, min_disp and max_disp are taken as float32, as the
-    JAX package's traced scalars are.  plain=True runs the SAD search's
-    plain version on any device.
+    JAX package's traced scalars are: 0-dim tensors on the device, or
+    Python numbers that become such tensors once (no copy after the first
+    call).  plain=True runs the SAD search's plain version on any device.
     """
     dev = xy_l.device
     n = xy_l.shape[0]
-    bf = _f32(bf, dev)
-    min_disp = _f32(min_disp, dev)
-    max_disp = _f32(max_disp, dev)
+    bf = consts.scalar(bf, dev)
+    min_disp = consts.scalar(min_disp, dev)
+    max_disp = consts.scalar(max_disp, dev)
 
     # --- 1. candidate mask: row band, octave band, disparity window ------
     vL = xy_l[:, 1:2]
@@ -102,7 +97,8 @@ def match(
     disparity = xy_l[:, 0] - u_right
     good = matched & (disparity >= min_disp) & (disparity < max_disp)
     # ref: disparity<=0 snapped to 0.01 (Frame.cc:609-612)
-    disparity = torch.where(disparity <= 0, _f32(0.01, dev), disparity)
+    disparity = torch.where(disparity <= 0, consts.scalar(0.01, dev),
+                            disparity)
 
     neg = torch.full_like(disparity, -1.0)
     depth = torch.where(good, bf / disparity, neg)
@@ -132,8 +128,9 @@ def median_sad_filter(m: StereoMatches) -> StereoMatches:
     srt = torch.sort(torch.where(finite, m.sad, torch.full_like(m.sad,
                                                                 torch.inf)))[0]
     cnt = finite.sum()
-    lo = srt[((cnt - 1) // 2).clamp(min=0)]
-    hi = srt[(cnt // 2).clamp(max=srt.shape[0] - 1)]
+    # gathers, not srt[t]: indexing by a 0-dim tensor reads it on the host
+    lo = srt.gather(0, ((cnt - 1) // 2).clamp(min=0).reshape(1))[0]
+    hi = srt.gather(0, (cnt // 2).clamp(max=srt.shape[0] - 1).reshape(1))[0]
     med = torch.where(cnt > 0, lo * 0.5 + hi * 0.5,
                       torch.full_like(lo, torch.nan))
     keep = finite & (m.sad <= 1.5 * 1.4 * med)
@@ -160,5 +157,6 @@ def depth_from_rgbd(
     neg = torch.full_like(d, -1.0)
     depth = torch.where(good, d, neg)
     u_right = torch.where(
-        good, xy[:, 0] - _f32(bf, d.device) / d.clamp(min=1e-6), neg)
+        good, xy[:, 0] - consts.scalar(bf, d.device) / d.clamp(min=1e-6),
+        neg)
     return u_right, depth

@@ -18,8 +18,10 @@ from orb_slam2_tpu.ops import brief as jbrief
 from orb_slam2_tpu_torch import convert
 from orb_slam2_tpu_torch.config import Settings
 from orb_slam2_tpu_torch.ops import (
-    brief, cuda_build, fast_cuda, frontend, orb_cuda, stereo_cuda,
+    brief, consts, cuda_build, fast_cuda, frontend, orb_cuda, orientation,
+    stereo, stereo_cuda,
 )
+from orb_slam2_tpu_torch.slam import track_step
 
 torch.set_num_threads(2)
 
@@ -230,3 +232,91 @@ def test_sources_import_no_jax_and_build_flags():
         cuda_build.SOURCES)
     flags = " ".join(cuda_build.NVCC_FLAGS)
     assert "code=sm_90a" in flags and "fast_math" not in flags
+
+
+def test_build_track_step_is_memoized_and_eager_on_cpu():
+    """On a CPU device the step is the eager function (a GraphStep only
+    on CUDA), one per settings, mode and plain flag."""
+    s = Settings(fx=100.0, fy=100.0, cx=64, cy=48, bf=50.0, width=128,
+                 height=96, n_features=200)
+    a = track_step.build_track_step(s, "stereo", device="cpu")
+    assert a is track_step.build_track_step(s, True, device="cpu")
+    assert a is not track_step.build_track_step(s, "stereo", device="cpu",
+                                                plain=True)
+    assert a is not track_step.build_track_step(s, "mono", device="cpu")
+    assert callable(a) and not isinstance(a, track_step.GraphStep)
+
+
+def _frontend_constant_users():
+    """Outputs of the three users of constant tensors on the plain path:
+    stereo.match (bf, min/max disparity), ic_angles (moment weights) and
+    brief.describe (the pattern)."""
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.uniform(0, 255, (64, 96)).astype(np.float32))
+    xy = torch.from_numpy(rng.integers(16, 48, (40, 2)).astype(np.int32))
+    valid = torch.ones(40, dtype=torch.bool)
+    ang = orientation.ic_angles(img, xy, valid)
+    desc = brief.describe(img, xy, ang, valid)
+    sf = torch.tensor(1.2 ** np.arange(4), dtype=torch.float32)
+    oct_ = torch.from_numpy(rng.integers(0, 4, 40).astype(np.int32))
+    fxy = xy.float()
+    m = stereo.match(fxy, oct_, desc, valid, fxy - 3.0, oct_, desc, valid,
+                     img, img.roll(-3, 1), sf, 40.0, 0.0, 100.0)
+    return [ang, desc, *m]
+
+
+def test_plain_path_constants_are_made_once_and_give_the_same_output():
+    """After a first call, the plain orientation / BRIEF versions and
+    stereo.match make no constant tensor (no host-to-device copy on a
+    card); their output is bit-equal to making each constant afresh."""
+    first = _frontend_constant_users()
+    n_tables, n_scalars = len(consts._tables), len(consts._scalars)
+    w10 = consts.table(orientation._W10, "cpu", torch.float64)
+    second = _frontend_constant_users()
+    assert (len(consts._tables), len(consts._scalars)) == (n_tables,
+                                                           n_scalars)
+    assert consts.table(orientation._W10, "cpu", torch.float64) is w10
+    assert consts.scalar(40.0, "cpu") is consts.scalar(40.0, "cpu")
+    orig = consts.table, consts.scalar
+    try:
+        consts.table = lambda a, dev, dtype: torch.as_tensor(
+            a, dtype=dtype, device=dev)
+        consts.scalar = lambda v, dev, dtype=torch.float32: (
+            v if torch.is_tensor(v) else torch.as_tensor(v, dtype=dtype,
+                                                         device=dev))
+        fresh = _frontend_constant_users()
+    finally:
+        consts.table, consts.scalar = orig
+    for a, b, c in zip(first, second, fresh):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_constant_tables_follow_a_new_brief_pattern():
+    """brief.set_pattern installs a new array, so the next describe uses
+    a fresh device copy of it, not the old pattern's."""
+    default = brief.get_pattern()
+    old = consts.table(brief._PATTERN, "cpu", torch.float32)
+    try:
+        brief.set_pattern(jbrief.generate_pattern(5))
+        new = consts.table(brief._PATTERN, "cpu", torch.float32)
+        assert new is not old
+        np.testing.assert_array_equal(new.numpy(), brief.get_pattern())
+    finally:
+        brief.set_pattern(default)
+
+
+def test_graph_step_keys_inputs_by_shape_and_dtype():
+    """numpy and tensor inputs of one shape and dtype share a graph; uint32
+    descriptor blocks enter as their int32 bits; another L is another
+    graph.  (Capture and replay themselves run on the card only, in
+    chip_smoke.py.)"""
+    desc = np.array([[0xFFFFFFFF] * 8], np.uint32)
+    as_int = track_step._as_input(desc)
+    assert as_int.dtype == np.int32 and (as_int == -1).all()
+    a = (np.zeros((4, 8), np.int32), None)
+    b = (torch.zeros((4, 8), dtype=torch.int32), None)
+    c = (np.zeros((5, 8), np.int32), None)
+    key = track_step.GraphStep._key
+    assert key(a) == key(b) != key(c)
+    assert key((track_step._as_input(np.zeros((4, 8), np.uint32)), None)) \
+        == key(a)
