@@ -30,7 +30,24 @@ there is no CUDA device or any phase fails.  Phases:
              path (Tcw within 1e-4, assign equal on >= 99% of valid
              features); the three kernels appear among the device kernels
              of a profiled replay; step times (graph, eager, eager plain),
-             launches a frame and the device's busy share.
+             launches a frame and the device's busy share;
+  7. system  the port's stereo System (slam/tracking.py, local mapping,
+             system.py) on the card with the sync scheduler:
+             (a) the 16-frame 240x320 sequence of tests/test_golden.py:
+                 the golden's frame count and timestamps, every camera
+                 centre within 5 mm of tests/data/golden_stereo_traj.npz;
+             (b) 40 consecutive KITTI-shaped frames (the poses of phase 6)
+                 through System.track_stereo: no frame LOST and no reset,
+                 >= 3 keyframes, a triangulation that bore points, a local
+                 BA, every pose within 0.05 m and 0.5 deg of the truth, the
+                 three kernels launched and found by name in a profiled
+                 frame; median ms of fast-path and keyframe frames, the
+                 stage timers, launches per keyframe in the mapper, the
+                 graph captures and the map's size;
+             (c) one local-BA problem gathered in (b), solved on the card
+                 and on the CPU: cam_T within 1e-4, points within 1e-3 m,
+                 outlier masks equal on >= 99% of edges; two card solves
+                 compared for determinism.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors and times.
@@ -71,6 +88,14 @@ PLAIN_TCW_ATOL = 1e-4
 PLAIN_ASSIGN_SHARE = 0.99
 KERNEL_NAMES = {"fast": "fast_cell_kernel", "orb": "orb_describe_kernel",
                 "stereo": "sad_strips_kernel"}
+
+# the system phase
+GOLDEN = os.path.join(ROOT, "tests", "data", "golden_stereo_traj.npz")
+GOLDEN_MAX_DEV_M = 5e-3
+N_SYSTEM = 40
+MIN_KEYFRAMES = 3
+BA_CAM_ATOL, BA_PTS_ATOL, BA_BAD_SHARE = 1e-4, 1e-3, 0.99
+PROFILED_KEYFRAME_PASS = 3     # the mapper's fourth pass (0-based)
 
 
 def check(cond: bool, what: str) -> None:
@@ -375,6 +400,231 @@ def track_phase(torch, np, dev, settings, scene, gpu) -> dict:
     return {"launches": launches, "times": times}
 
 
+def golden_phase(np, dev) -> dict:
+    """Phase 7a: tests/test_golden.py's sequence through the System on the
+    card, read as that test reads it."""
+    from orb_slam2_tpu_torch.config import Sensor, Settings
+    from orb_slam2_tpu_torch.system import System
+    from synthetic import stereo_sequence, straight_trajectory
+
+    h, w, fx, base = 240, 320, 260.0, 0.12    # tests/test_golden.py:28-37
+    s = Settings(fx=fx, fy=fx, cx=w / 2, cy=h / 2, bf=fx * base, width=w,
+                 height=h, n_features=800, fps=10.0, th_depth=40.0)
+    poses = straight_trajectory(16, step=0.05, yaw_step=0.004)
+    _, pairs = stereo_sequence(s.K, h, w, base, poses)
+    system = System(s, Sensor.STEREO, device=dev)
+    for i, (l, r) in enumerate(pairs):
+        system.track_stereo(l, r, i * 0.1)
+    store = system.store
+    ts, centres = [], []
+    for e in system.tracker.trajectory:
+        if e.lost or not store.kf_valid[e.ref_kf]:
+            continue
+        T = e.Tcr @ store.kf_pose[e.ref_kf]
+        ts.append(e.timestamp)
+        centres.append(-T[:3, :3].T @ T[:3, 3])
+    g = np.load(GOLDEN)
+    check(len(ts) == len(g["ts"]),
+          f"golden: {len(ts)} frames against {len(g['ts'])}")
+    check(np.allclose(ts, g["ts"], atol=1e-9), "golden: timestamps differ")
+    dev_m = np.linalg.norm(np.array(centres, np.float32) - g["centers"], axis=1)
+    print(f"[system] golden on the card: {len(ts)} frames, timestamps equal, "
+          f"max camera-centre deviation {dev_m.max():.3g} m (limit "
+          f"{GOLDEN_MAX_DEV_M} m), {int(store.kf_valid.sum())} keyframes")
+    check(dev_m.max() < GOLDEN_MAX_DEV_M,
+          f"golden: deviation {dev_m.max()} m at frame {int(dev_m.argmax())}")
+    return {"frames": len(ts), "max_dev_m": float(dev_m.max())}
+
+
+def system_phase(torch, np, dev, settings, scene, gpu) -> dict:
+    """Phase 7b and 7c: N_SYSTEM KITTI-shaped frames through the System on
+    the card, then one gathered local-BA problem on the card against the
+    CPU."""
+    from orb_slam2_tpu_torch.config import Sensor
+    from orb_slam2_tpu_torch.ops import fast_cuda, orb_cuda, stereo_cuda
+    from orb_slam2_tpu_torch.slam.track_step import GraphStep
+    from orb_slam2_tpu_torch.solvers import ba
+    from orb_slam2_tpu_torch.system import System
+    from synthetic import circle_trajectory
+    import test_torch_track_blocks as blocks_mod
+
+    poses = circle_trajectory(240, orbit_r=3.0,
+                              total_angle=3 * np.pi)[:N_SYSTEM]
+    Trl = np.eye(4, dtype=np.float32)
+    Trl[0, 3] = -BF / FX
+    pairs = [(scene.render(T).astype(np.uint8),
+              scene.render(Trl @ T).astype(np.uint8)) for T in poses]
+    system = System(settings, Sensor.STEREO, device=dev)
+    tracker, mapper = system.tracker, system.local_mapper
+
+    # observe the mapper without changing it: births of each
+    # triangulation, the gathered BA problems, one profiled keyframe pass
+    births, problems, mapper_prof = [], [], {}
+    tri_apply, gather, process_one = (mapper._triangulate_apply,
+                                      mapper._gather_ba_problem,
+                                      mapper.process_one)
+
+    def counted_tri_apply(kf, pend):
+        n0 = system.store.n_pt
+        tri_apply(kf, pend)
+        births.append(system.store.n_pt - n0)
+
+    def kept_gather(*a, **k):
+        out = gather(*a, **k)
+        problems.append(out[0])
+        return out
+
+    def profiled_process_one():
+        # the fourth keyframe pass: the origin's has no neighbours, the
+        # second warms the mapper up, the third is the first with a local
+        # BA (more than two keyframes), the fourth is a warm one with BA
+        seen = mapper_prof.get("seen", 0)
+        mapper_prof["seen"] = seen + 1
+        if seen != PROFILED_KEYFRAME_PASS:
+            return process_one()
+        n_ba = mapper.timers.counts["lm/ba_device"]
+        mapper_prof.update(profile_call(torch, process_one))
+        mapper_prof["frame"] = len(frame_ms)
+        mapper_prof["with_ba"] = mapper.timers.counts["lm/ba_device"] > n_ba
+
+    mapper._triangulate_apply = counted_tri_apply
+    mapper._gather_ba_problem = kept_gather
+    mapper.process_one = profiled_process_one
+
+    torch.cuda.reset_peak_memory_stats()
+    fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
+    frame_ms, kinds, errs = [], [], []
+    for i, (l, r) in enumerate(pairs):
+        n_kf, n_fast = system.store.n_kf, tracker.timers.counts["fast_step"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        T = system.track_stereo(l, r, 0.1 * i)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t))
+        check(T is not None and tracker.state.name == "OK"
+              and tracker.resets == 0, f"system frame {i}: lost or reset")
+        kf = system.store.n_kf > n_kf
+        fast = tracker.timers.counts["fast_step"] > n_fast
+        kinds.append("keyframe" if kf else ("fast" if fast else "modular"))
+        errs.append(blocks_mod.pose_error(
+            T, poses[i] @ np.linalg.inv(poses[0])))
+    launches = {"fast": fast_cuda.launches, "orb": orb_cuda.launches,
+                "stereo": stereo_cuda.launches}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    print("[system] frame: kind, ms, pose error m/deg: " + "; ".join(
+        f"{i} {k} {ms:.1f} {dt:.4f}/{dr:.3f}"
+        for i, (k, ms, (dt, dr)) in enumerate(zip(kinds, frame_ms, errs))))
+    for i, (dt, dr) in enumerate(errs):
+        check(dt <= MAX_POSE_ERR_M and dr <= MAX_POSE_ERR_DEG,
+              f"system frame {i}: pose error {dt} m {dr} deg")
+    mapper._triangulate_apply, mapper._gather_ba_problem = tri_apply, gather
+    mapper.process_one = process_one
+    n_keyframes = sum(k == "keyframe" for k in kinds)
+    print(f"[system] {N_SYSTEM} KITTI-shaped frames: {n_keyframes} keyframe "
+          f"frames (at {[i for i, k in enumerate(kinds) if k == 'keyframe']}),"
+          f" triangulation births {births}, "
+          f"{mapper.timers.counts['lm/ba_device']} local BAs; max pose error "
+          f"{max(e[0] for e in errs):.4f} m "
+          f"{max(e[1] for e in errs):.4f} deg; kernel launches {launches}")
+    check(n_keyframes >= MIN_KEYFRAMES, f"only {n_keyframes} keyframes")
+    check(any(b > 0 for b in births), "no triangulation bore points")
+    check(mapper.timers.counts["lm/ba_device"] >= 1, "no local BA ran")
+    for name, c in launches.items():
+        check(c > 0, f"kernel {name} was not launched by the system phase")
+
+    # the kernels by name in one profiled fast-path frame
+    prof = profile_call(torch, lambda: system.track_stereo(
+        *pairs[-1], 0.1 * N_SYSTEM))
+    for name, kname in KERNEL_NAMES.items():
+        check(any(kname in nm for nm in prof["names"]),
+              f"kernel {kname} not among a system frame's device kernels")
+
+    # times: the first fast-path frame warms up and captures its graph;
+    # the profiled keyframe pass is left out
+    first_fast = kinds.index("fast")
+    skip = {first_fast, mapper_prof.get("frame", -1)}
+    by_kind = {k: [ms for i, (ms, kk) in enumerate(zip(frame_ms, kinds))
+                   if kk == k and i not in skip]
+               for k in ("fast", "keyframe", "modular")}
+    med = {k: (statistics.median(v) if v else None)
+           for k, v in by_kind.items()}
+    step = tracker._get_fast_step()
+    check(isinstance(step, GraphStep), "the System's step is not a GraphStep")
+    graphs = getattr(step, "_graphs", {})
+    # (L, M): the rows of the last-frame and local-candidate blocks
+    captures = sorted((key[3][0][0], key[7][0][0]) for key in graphs)
+    store = system.store
+    print("[system] tracker stage timers:\n" + tracker.timers.report())
+    print("[system] mapper stage timers:\n" + mapper.timers.report())
+    mapper_launches = {k: v for k, v in mapper_prof.get("launches",
+                                                        {}).items()}
+    fams = sorted(mapper_prof.get("device_ms_by_family", {}).items(),
+                  key=lambda kv: -kv[1])
+    print(f"[system] one profiled keyframe pass of the mapper (frame "
+          f"{mapper_prof.get('frame')}, local BA: "
+          f"{mapper_prof.get('with_ba')}): "
+          f"{mapper_prof.get('n_device')} device kernels and copies, launch "
+          f"calls {mapper_launches}, {mapper_prof.get('wall_ms', 0):.1f} ms "
+          f"profiled, device busy {100 * mapper_prof.get('busy_share', 0):.1f}"
+          "%; device ms by kernel family: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in fams))
+    print(f"[system] peak device memory during the run: {peak_mb:.0f} MiB")
+    print(f"[system] graph captures: {len(graphs)} "
+          f"((L, M) of each: {captures}); map: "
+          f"{int(store.kf_valid.sum())} keyframes, "
+          f"{len(store.valid_pt_ids())} points")
+
+    # ---- 7c: one gathered local-BA problem, card against CPU
+    check(len(problems) > 0, "no local-BA problem was gathered")
+    prob = problems[-1]
+    args = (settings.fx, settings.fy, settings.cx, settings.cy, settings.bf)
+    onehot = prob.edge_cam.shape[0] * prob.pts.shape[0] <= \
+        ba.ONEHOT_MAX_ENTRIES
+    card = [ba.local_ba_chain(prob, *args) for _ in range(2)]
+    cpu = ba.local_ba_chain(ba.BAProblem(*[t.cpu() for t in prob]), *args)
+    card0 = [t.cpu() for t in card[0]]
+    same_twice = all(torch.equal(a, b) for a, b in zip(card[0], card[1]))
+    cam_err = float((card0[0] - cpu[0]).abs().max())
+    pm = prob.pt_mask.cpu()
+    pts_err = float((card0[1] - cpu[1]).abs()[pm].max())
+    em = prob.edge_mask.cpu()
+    bad_share = float((card0[2] == cpu[2])[em].float().mean())
+    ba_ms = cuda_ms(torch, lambda: ba.local_ba_chain(prob, *args), 1, 3)
+    t = time.perf_counter()
+    ba.local_ba_chain(ba.BAProblem(*[t_.cpu() for t_ in prob]), *args)
+    ba_cpu_ms = 1e3 * (time.perf_counter() - t)
+    K, P, E = (prob.cam_T.shape[0], prob.pts.shape[0],
+               prob.edge_cam.shape[0])
+    print(f"[system] local BA K={K} P={P} E={E} "
+          f"({int(pm.sum())} points, {int(em.sum())} edges; "
+          f"{'one-hot' if onehot else 'scatter'} route): card vs CPU "
+          f"cam_T {cam_err:.3g}, points {pts_err:.3g} m, outlier masks equal "
+          f"on {100 * bad_share:.2f}% of edges; two card solves bit-equal: "
+          f"{same_twice}; chain {ba_ms:.1f} ms on the card, "
+          f"{ba_cpu_ms:.1f} ms on the CPU")
+    check(cam_err <= BA_CAM_ATOL, f"local BA cam_T differs by {cam_err}")
+    check(pts_err <= BA_PTS_ATOL, f"local BA points differ by {pts_err} m")
+    check(bad_share >= BA_BAD_SHARE, f"local BA outliers agree on {bad_share}")
+
+    print(json.dumps({
+        "metric": "system_ms_per_frame", "shape": [H, W],
+        "n_features": N_FEATURES, "frames": N_SYSTEM,
+        "fast_path_median_ms": med["fast"],
+        "keyframe_median_ms": med["keyframe"],
+        "modular_median_ms": med["modular"],
+        "frames_by_kind": {k: len(v) for k, v in by_kind.items()},
+        "keyframes": n_keyframes, "graph_captures": len(graphs),
+        "mapper_launch_calls_per_keyframe": mapper_launches,
+        "mapper_busy_share": mapper_prof.get("busy_share"),
+        "peak_device_mib": peak_mb,
+        "local_ba_card_ms": ba_ms, "local_ba_cpu_ms": ba_cpu_ms,
+        "local_ba_route": "one-hot" if onehot else "scatter",
+        "local_ba_card_deterministic": same_twice,
+        "max_pose_err_m": max(e[0] for e in errs),
+        "max_pose_err_deg": max(e[1] for e in errs), "gpu": gpu}))
+    return {"launches": launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -569,6 +819,10 @@ def main() -> int:
 
     # ---- 6. the fused tracking step, one CUDA graph a frame --------------
     track = track_phase(torch, np, dev, settings, scene, gpu)
+
+    # ---- 7. the stereo System: golden, KITTI-shaped run, one local BA ------
+    golden_phase(np, dev)
+    system = system_phase(torch, np, dev, settings, scene, gpu)
     kernels = [
         {"name": "fast_detect_with_fallback", "route": "cuda",
          "source": "orb_slam2_tpu_torch/csrc/fast.cu",
@@ -578,6 +832,7 @@ def main() -> int:
          "graph_ms": graph_times["fast"][0],
          "plain_graph_ms": graph_times["fast"][1],
          "launches_track_step": track["launches"]["fast"],
+         "launches_system": system["launches"]["fast"],
          "per": "8 pyramid levels of one 376x1240 image"},
         {"name": "orb_describe_oriented", "route": "cuda",
          "source": "orb_slam2_tpu_torch/csrc/orb.cu",
@@ -587,6 +842,7 @@ def main() -> int:
          "graph_ms": graph_times["orb"][0],
          "plain_graph_ms": graph_times["orb"][1],
          "launches_track_step": track["launches"]["orb"],
+         "launches_system": system["launches"]["orb"],
          "per": "8 levels' budgets of one image (2000 keypoints); "
                 "max_abs_err is the angle in degrees",
          "desc_identical_share": desc_share},
@@ -598,6 +854,7 @@ def main() -> int:
          "graph_ms": graph_times["stereo"][0],
          "plain_graph_ms": graph_times["stereo"][1],
          "launches_track_step": track["launches"]["stereo"],
+         "launches_system": system["launches"]["stereo"],
          "per": f"N={n_sad} keypoints on level 0"},
     ]
     for k in kernels:

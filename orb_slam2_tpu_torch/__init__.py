@@ -23,5 +23,6 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from orb_slam2_tpu_torch.config import Sensor, Settings  # noqa: E402,F401
+from orb_slam2_tpu_torch.system import System  # noqa: E402,F401
 
-__all__ = ["Settings", "Sensor", "__version__"]
+__all__ = ["Settings", "Sensor", "System", "__version__"]

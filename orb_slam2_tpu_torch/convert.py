@@ -1,12 +1,14 @@
 """State conversion between the JAX package and this one.
 
-The system has no weights: its state is the `Settings` and the constant
-tables.  These helpers move them across as plain Python and numpy
-values, so this module imports neither jax nor orb_slam2_tpu.
+The system has no weights: its state is the `Settings`, the constant
+tables and the map (`MapStore`).  These helpers move them across as
+plain Python and numpy values, so this module imports neither jax nor
+orb_slam2_tpu.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -14,7 +16,9 @@ import torch
 
 from orb_slam2_tpu_torch.config import RectificationParams, Settings
 from orb_slam2_tpu_torch.ops import brief
+from orb_slam2_tpu_torch.slam.map_store import MapStore
 from orb_slam2_tpu_torch.slam.track_step import unpack_track_out
+from orb_slam2_tpu_torch.solvers import ba
 
 
 def settings_from_jax(s) -> Settings:
@@ -83,3 +87,30 @@ def track_result_to_numpy(out, n: int, m: int) -> dict:
     d = res._asdict()
     d["desc"] = desc
     return d
+
+
+def map_store_from_jax(store, device="cpu") -> MapStore:
+    """This package's MapStore from a JAX-package `MapStore`, read as its
+    `save` reads it (the two packages share that layout), with every array
+    and dict copied."""
+    arrays, meta = MapStore.state(store)
+    return MapStore.from_state({k: v.copy() for k, v in arrays.items()},
+                               copy.deepcopy(meta), device=device)
+
+
+def ba_problem_from_numpy(cam_T, cam_fixed, cam_mask, pts, pt_mask,
+                          edge_cam, edge_pt, edge_uv, edge_inv_sigma2,
+                          edge_mask, device="cpu") -> ba.BAProblem:
+    """A `BAProblem` on `device` from numpy arrays (or anything
+    np.asarray takes, e.g. the fields of a JAX-package BAProblem):
+    float32 poses, points and observations, int64 edge indices, bool
+    masks."""
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+    return ba.BAProblem(
+        t(cam_T, np.float32), t(cam_fixed, bool), t(cam_mask, bool),
+        t(pts, np.float32), t(pt_mask, bool),
+        t(edge_cam, np.int64), t(edge_pt, np.int64),
+        t(edge_uv, np.float32), t(edge_inv_sigma2, np.float32),
+        t(edge_mask, bool))

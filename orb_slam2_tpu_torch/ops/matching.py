@@ -1,16 +1,19 @@
 """Batched descriptor matching: the tracking matchers as masked matrices.
 
-Port of orb_slam2_tpu/ops/matching.py, the part the stereo tracking path
-uses (ref: ORBmatcher::SearchByProjection, src/ORBmatcher.cc:45-129 and
-:1328-1470, and Frame::isInFrustum, src/Frame.cc:269-325).  Every mode
-is a masked (Q, T) packed-Hamming distance matrix with window / octave /
-stereo compatibility masks, a row-wise (best, second) reduction, the
-reference's ratio test and rotation-histogram filter, and a scatter-min
-that keeps one claiming query per target feature.
+Port of orb_slam2_tpu/ops/matching.py: the tracking matchers (ref:
+ORBmatcher::SearchByProjection, src/ORBmatcher.cc:45-129 and :1328-1470,
+and Frame::isInFrustum, src/Frame.cc:269-325), SearchByBoW, the
+triangulation search and Fuse with their batched-over-keyframes forms.
+Every mode is a masked (Q, T) packed-Hamming distance matrix with window
+/ octave / stereo compatibility masks, a row-wise (best, second)
+reduction, the reference's ratio test and rotation-histogram filter, and
+a scatter-min that keeps one claiming query per target feature.  Where
+the JAX package vmaps over B keyframes, the tensors here carry a leading
+B dimension.
 
-The relocalization, triangulation, fuse and Sim3 matchers are not ported
-yet (ROADMAP items 3 and 6).  The fused tracking step
-(slam/track_step.py) inlines the same logic as these functions.
+The relocalization, initialization and Sim3 matchers are not ported yet
+(ROADMAP items 6 and 7).  The fused tracking step (slam/track_step.py)
+inlines the same logic as the tracking matchers.
 
 All functions take fixed-shape padded tensors + validity masks and read
 nothing back to the host.  Scalars (fx, fy, cx, cy, bf, the log scale
@@ -23,9 +26,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from orb_slam2_tpu_torch.ops import consts, hamming
+from orb_slam2_tpu_torch.utils import to_numpy
 
 TH_LOW = hamming.TH_LOW     # 50,  ref: src/ORBmatcher.cc:38
 TH_HIGH = hamming.TH_HIGH   # 100, ref: src/ORBmatcher.cc:37
@@ -46,16 +51,18 @@ def resolve_duplicates(idx: torch.Tensor, dist: torch.Tensor,
 
     Returns the filtered `ok` mask.  Ties break by query index
     (deterministic): the key is dist * Q + query, and `.at[idx].min` is
-    scatter_reduce's "amin".
+    scatter_reduce's "amin".  Leading dimensions are separate match sets.
     """
-    q = idx.shape[0]
+    q = idx.shape[-1]
+    idx = idx.long()
     key = dist.int() * q + torch.arange(q, dtype=torch.int32,
                                          device=idx.device)
     key = torch.where(ok, key, _BIG)
-    best_key = torch.full((n_targets,), _BIG, dtype=torch.int32,
+    best_key = torch.full((*idx.shape[:-1], n_targets), _BIG,
+                          dtype=torch.int32,
                           device=idx.device).scatter_reduce(
-        0, idx.long(), key, reduce="amin", include_self=True)
-    return ok & (best_key[idx] == key)
+        -1, idx, key, reduce="amin", include_self=True)
+    return ok & (torch.gather(best_key, -1, idx) == key)
 
 
 # row-wise (best_idx, best, second_best) over a masked distance matrix;
@@ -272,6 +279,176 @@ def search_last_frame(
     return Matches(best_idx, best, ok)
 
 
+# ---------------------------------------------------------------------------
+# SearchByBoW (ref: src/ORBmatcher.cc:159-288 and :522-655)
+# ---------------------------------------------------------------------------
+
+def search_by_nodes(
+    desc_q: torch.Tensor, node_q: torch.Tensor, valid_q: torch.Tensor,
+    angle_q: torch.Tensor,
+    desc_t: torch.Tensor, node_t: torch.Tensor, valid_t: torch.Tensor,
+    angle_t: torch.Tensor,
+    ratio: float = 0.7,
+    check_rotation: bool = True,
+) -> Matches:
+    """Vocabulary-node-aligned brute force: candidates share the same BoW
+    node id (the FeatureVector alignment of the reference); TH_LOW accept,
+    mNNratio test, rotation histogram.  With node ids all equal (-1
+    without a vocabulary) this is full brute-force matching."""
+    compat = (
+        (node_q[:, None] == node_t[None, :])
+        & valid_q[:, None] & valid_t[None, :]
+    )
+    dist = hamming.distance_matrix(desc_q, desc_t)
+    best_idx, best, second = _best_two(dist, compat)
+    ok = (
+        valid_q & (best <= TH_LOW)
+        & (best.float() < ratio * second.float())
+    )
+    if check_rotation:
+        ok = hamming.rotation_histogram_filter(angle_q, angle_t[best_idx], ok)
+    ok = ok & resolve_duplicates(best_idx, best, ok, desc_t.shape[0])
+    return Matches(best_idx, best, ok)
+
+
+# ---------------------------------------------------------------------------
+# SearchForTriangulation (ref: src/ORBmatcher.cc:657-823)
+# ---------------------------------------------------------------------------
+
+def search_for_triangulation(
+    xy1: torch.Tensor, ur1: torch.Tensor, octave1: torch.Tensor,
+    desc1: torch.Tensor, node1: torch.Tensor, angle1: torch.Tensor,
+    free1: torch.Tensor,
+    xy2: torch.Tensor, ur2: torch.Tensor, octave2: torch.Tensor,
+    desc2: torch.Tensor, node2: torch.Tensor, angle2: torch.Tensor,
+    free2: torch.Tensor,
+    F12: torch.Tensor,
+    epipole2: torch.Tensor,       # (..., 2) epipole of cam1 center in image 2
+    scale_factors: torch.Tensor,
+    level_sigma2: torch.Tensor,
+    check_rotation: bool = True,
+) -> Matches:
+    """Epipolar-constrained matching of unbound keypoints between two
+    keyframes for triangulation: node-aligned candidates, epipolar
+    distance < 3.84 * sigma^2 at kp2's octave (ref CheckDistEpipolarLine
+    :140-157), epipole proximity reject for mono kps (ref :743-749),
+    TH_LOW, rotation histogram.  Every input may carry the same leading
+    batch dimensions (one keyframe pair each)."""
+    compat = (
+        (node1[..., :, None] == node2[..., None, :])
+        & free1[..., :, None] & free2[..., None, :]
+    )
+
+    # epipolar line of kp1 in image 2: l = F12^T x1  (a,b,c)
+    x1h = torch.cat([xy1, torch.ones_like(xy1[..., :1])], -1)   # (.., N1, 3)
+    lines = x1h @ F12                                         # (.., N1, 3)
+    a, b, c = lines[..., 0:1], lines[..., 1:2], lines[..., 2:3]
+    num = a * xy2[..., None, :, 0] + b * xy2[..., None, :, 1] + c
+    den = a * a + b * b
+    dsq = num * num / den.clamp(min=1e-12)
+    epi_ok = dsq < 3.84 * level_sigma2[octave2.long()][..., None, :]
+
+    # mono-mono pairs near the epipole are degenerate (ref :743-749)
+    both_mono = (ur1[..., :, None] < 0) & (ur2[..., None, :] < 0)
+    de = xy2 - epipole2[..., None, :]
+    dist_ex = (de * de).sum(-1)                                # (.., N2)
+    epi_far = (dist_ex[..., None, :]
+               >= 100.0 * scale_factors[octave2.long()][..., None, :] ** 2)
+    near_reject = both_mono & ~epi_far
+
+    compat = compat & epi_ok & ~near_reject
+    dist = hamming.distance_matrix(desc1, desc2)
+    best_idx, best, _ = _best_two(dist, compat)
+    ok = free1 & (best <= TH_LOW)
+    if check_rotation:
+        ok = hamming.rotation_histogram_filter(
+            angle1, torch.gather(angle2, -1, best_idx), ok)
+    ok = ok & resolve_duplicates(best_idx, best, ok, xy2.shape[-2])
+    return Matches(best_idx, best, ok)
+
+
+# ---------------------------------------------------------------------------
+# Fuse (ref: src/ORBmatcher.cc:825-975)
+# ---------------------------------------------------------------------------
+
+class FuseMatches(NamedTuple):
+    idx: torch.Tensor    # (M,) best feature index in the target keyframe
+    dist: torch.Tensor   # (M,)
+    ok: torch.Tensor     # (M,)
+
+
+def fuse_points(
+    pts_w: torch.Tensor, pt_mask: torch.Tensor, pt_desc: torch.Tensor,
+    pt_normal: torch.Tensor, pt_min_dist: torch.Tensor,
+    pt_max_dist: torch.Tensor,
+    Tcw: torch.Tensor,
+    feat_xy: torch.Tensor, feat_ur: torch.Tensor, feat_octave: torch.Tensor,
+    feat_desc: torch.Tensor, feat_valid: torch.Tensor,
+    fx, fy, cx, cy, bf,
+    bounds: torch.Tensor,
+    scale_factors: torch.Tensor,
+    level_sigma2: torch.Tensor,
+    log_scale_factor,
+    n_levels: int,
+    th: float = 3.0,
+    use_stereo_residual: bool = True,
+    view_cos_limit: float = 0.5,
+) -> FuseMatches:
+    """Project map points into a keyframe and find the best keypoint within
+    a chi2-gated window for fusion (ref Fuse :825-975): frustum + distance
+    band + view angle, radius th*sf[pred], octave band [pred-1, pred],
+    reprojection chi2 < 5.99 (mono) / 7.8 (stereo) at the feature's octave,
+    TH_LOW accept.  The caller decides replace-vs-add-observation.  The
+    target keyframe's pose (..., 4, 4) and feature block (..., N, ...) may
+    carry leading dims (one target each); the M map points are shared."""
+    dev = pts_w.device
+    fx, fy, cx, cy, bf, log_sf = (consts.scalar(v, dev) for v in
+                                  (fx, fy, cx, cy, bf, log_scale_factor))
+    # project_points, with the pose's leading dims (ref Frame::isInFrustum)
+    R, t = Tcw[..., :3, :3], Tcw[..., :3, 3]
+    pc = pts_w @ R.transpose(-1, -2) + t[..., None, :]
+    z = pc[..., 2]
+    z_safe = z.clamp(min=1e-6)
+    u = fx * pc[..., 0] / z_safe + cx
+    v = fy * pc[..., 1] / z_safe + cy
+    ur = u - bf / z_safe
+    Ow = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
+    po = pts_w - Ow[..., None, :]
+    dist3 = torch.sqrt((po * po).sum(-1))
+    dist_safe = dist3.clamp(min=1e-9)
+    view_cos = (po * pt_normal).sum(-1) / dist_safe
+    level = predict_level(pt_max_dist, dist_safe, log_sf, n_levels)
+    in_frustum = (
+        pt_mask & (z > 0) & _in_bounds(u, v, bounds)
+        & (dist3 >= 0.8 * pt_min_dist) & (dist3 <= 1.2 * pt_max_dist)
+        & (view_cos > view_cos_limit)
+    )
+
+    radius = th * scale_factors[level]
+    du = u[..., :, None] - feat_xy[..., None, :, 0]
+    dv = v[..., :, None] - feat_xy[..., None, :, 1]
+    window = ((torch.abs(du) < radius[..., None])
+              & (torch.abs(dv) < radius[..., None]))
+    fo = feat_octave.long()[..., None, :]
+    oct_ok = (fo >= level[..., :, None] - 1) & (fo <= level[..., :, None])
+    inv_s2 = (1.0 / level_sigma2[feat_octave.long()])[..., None, :]
+    has_r = feat_ur[..., None, :] >= 0
+    if use_stereo_residual:
+        der = ur[..., :, None] - feat_ur[..., None, :]
+        e2_st = (du * du + dv * dv + der * der) * inv_s2
+        e2_mo = (du * du + dv * dv) * inv_s2
+        chi_ok = torch.where(has_r, e2_st <= 7.8, e2_mo <= 5.99)
+    else:
+        chi_ok = (du * du + dv * dv) * inv_s2 <= 5.99
+
+    compat = (window & oct_ok & chi_ok & in_frustum[..., :, None]
+              & feat_valid[..., None, :])
+    dist = hamming.distance_matrix(pt_desc, feat_desc)
+    best_idx, best, _ = _best_two(dist, compat)
+    ok = in_frustum & (best <= TH_LOW)
+    return FuseMatches(best_idx, best, ok)
+
+
 def to_host(m: Matches):
     """Pull a Matches result with ONE device-to-host copy (pack, then
     split): (idx int32, dist int32, ok bool) numpy arrays."""
@@ -280,3 +457,62 @@ def to_host(m: Matches):
     q = arr.shape[0] // 3
     return arr[:q], arr[q:2 * q], arr[2 * q:] > 0
 
+
+# ---------------------------------------------------------------------------
+# Batched-over-keyframes variants: local mapping issues one device call
+# for ALL covisible neighbors instead of one per neighbor.
+# ---------------------------------------------------------------------------
+
+def fuse_points_batch(
+    pts_w, pt_mask, pt_desc, pt_normal, pt_min_dist, pt_max_dist,
+    Tcw_b,                      # (B, 4, 4) target keyframe poses
+    feat_xy_b, feat_ur_b, feat_octave_b, feat_desc_b, feat_valid_b,
+    kf_mask_b,                  # (B,) bool valid targets
+    fx, fy, cx, cy, bf,
+    bounds, scale_factors, level_sigma2,
+    log_scale_factor, n_levels,
+    th=3.0,
+) -> torch.Tensor:
+    """fuse_points over B target keyframes in one batched call; returns
+    the packed float32 [idx (B*M), ok (B*M)]."""
+    fm = fuse_points(
+        pts_w, pt_mask & kf_mask_b[:, None], pt_desc, pt_normal,
+        pt_min_dist, pt_max_dist, Tcw_b, feat_xy_b, feat_ur_b,
+        feat_octave_b, feat_desc_b, feat_valid_b, fx, fy, cx, cy, bf,
+        bounds, scale_factors, level_sigma2, log_scale_factor, n_levels, th)
+    ok = fm.ok & kf_mask_b[:, None]
+    return torch.cat([fm.idx.float().reshape(-1), ok.float().reshape(-1)])
+
+
+def fuse_points_gather(
+    pts_w, pt_mask, pt_desc, pt_normal, pt_min_dist, pt_max_dist,
+    Tcw_b,                      # (B, 4, 4) target keyframe poses
+    ids_b,                      # (B,) mirror row ids of the targets
+    mir_f32, mir_i32, mir_desc, mir_valid,   # slam/kf_mirror fields
+    kf_mask_b,                  # (B,) bool valid targets
+    fx, fy, cx, cy, bf,
+    bounds, scale_factors, level_sigma2,
+    log_scale_factor, n_levels,
+    th=3.0,
+) -> torch.Tensor:
+    """fuse_points_batch with the target feature blocks gathered from the
+    device-resident keyframe mirror: the host uploads the candidate-point
+    blocks, poses and a (B,) index vector."""
+    ids_b = ids_b.long()
+    f2 = mir_f32[ids_b]
+    return fuse_points_batch(
+        pts_w, pt_mask, pt_desc, pt_normal, pt_min_dist, pt_max_dist,
+        Tcw_b, f2[..., 0:2], f2[..., 2], mir_i32[ids_b][..., 0],
+        mir_desc[ids_b], mir_valid[ids_b], kf_mask_b,
+        fx, fy, cx, cy, bf, bounds, scale_factors, level_sigma2,
+        log_scale_factor, n_levels, th,
+    )
+
+
+def unpack_fuse_batch(packed, B, M):
+    """(idx (B, M) int32, ok (B, M) bool) from a packed fuse result (a
+    HostCopy, a tensor or an array)."""
+    buf = to_numpy(packed)
+    idx = buf[: B * M].reshape(B, M).astype(np.int32)
+    ok = buf[B * M:].reshape(B, M) > 0.5
+    return idx, ok

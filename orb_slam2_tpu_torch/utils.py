@@ -1,10 +1,10 @@
 """Small shared utilities for the host-side pipeline.
 
-Copied from orb_slam2_tpu/utils.py: the framework-free helpers.  The
-JAX-specific ones (`setup_compile_cache`, `ensure_live_backend`,
-`fetch_async`) have no counterpart here.  In this package the bucket
-sizes bound the number of CUDA graphs a step captures (one per shape),
-as they bound XLA recompiles there.
+Port of orb_slam2_tpu/utils.py: the framework-free helpers, copied, and
+`fetch_async` over `HostCopy`.  The JAX-specific ones
+(`setup_compile_cache`, `ensure_live_backend`) have no counterpart here.
+In this package the bucket sizes bound the number of CUDA graphs a step
+captures (one per shape), as they bound XLA recompiles there.
 """
 
 from __future__ import annotations
@@ -14,6 +14,73 @@ from collections import defaultdict
 from typing import Dict
 
 import numpy as np
+import torch
+
+
+def torch_device(device) -> torch.device:
+    """`device` as a torch.device with its index ("cuda" -> "cuda:0").
+    Raises on a CUDA device when no card is present: nothing that asks
+    for the card carries on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device} requested but torch.cuda.is_available() "
+                "is false")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class HostCopy:
+    """A device tensor's copy into host memory, started without blocking.
+
+    On a CUDA tensor the copy goes into pinned memory with
+    `non_blocking=True` and an event is recorded behind it; `numpy()`
+    waits for that event only, never for the whole device.  A CPU tensor
+    is its own host copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host = t.detach()
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+    def numpy(self) -> np.ndarray:
+        self.wait()
+        return self.host.numpy()
+
+
+def fetch_async(tree) -> None:
+    """Wait for every `HostCopy` in `tree` (nested lists, tuples and
+    dicts; anything else is skipped).  The copies were started when the
+    results were dispatched, so this waits for the device work behind
+    them and nothing more."""
+    if isinstance(tree, HostCopy):
+        tree.wait()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            fetch_async(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            fetch_async(v)
+
+
+def to_numpy(x) -> np.ndarray:
+    """numpy array of a HostCopy (waiting for it), a tensor or an array."""
+    if isinstance(x, HostCopy):
+        return x.numpy()
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def bucket_size(n: int, minimum: int = 128) -> int:

@@ -63,6 +63,25 @@ print(sorted(m for m in sys.modules
     assert out.strip() == "[]", out
 
 
+def test_slam_modules_leave_jax_out():
+    """The modules of the SLAM loop (native/, io/, apps/, system.py and
+    the mapper) import no jax and no JAX package, and the no-jax source
+    rule below reads each of their files."""
+    mods = ("native.obs_engine", "io.datasets", "io.trajectory",
+            "apps.run_slam", "system", "slam.local_mapping",
+            "slam.tracking", "slam.kf_mirror", "solvers.ba",
+            "solvers.triangulation", "convert")
+    out = _run("import importlib, sys\n"
+               + "".join(f"importlib.import_module('orb_slam2_tpu_torch.{m}')\n"
+                         for m in mods)
+               + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+                 "('jax', 'jaxlib', 'orb_slam2_tpu')))")
+    assert out.strip() == "[]", out
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    for m in mods:
+        assert m.replace(".", "/") + ".py" in files, m
+
+
 def test_import_builds_nothing():
     """Importing every module and running a CPU frame neither runs nvcc
     nor loads or writes the kernels' library."""
