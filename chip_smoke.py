@@ -10,16 +10,21 @@ there is no CUDA device or any phase fails.  Phases:
   1. build   compile the three Hopper kernels from csrc/ with nvcc;
   2. kernels hold each kernel against its plain PyTorch version on the
              card, at the shapes of the main path (a 376x1240 KITTI-shaped
-             frame, 2000 features): FAST maps and SAD scores exactly
+             stereo pair, 2000 features): FAST maps and SAD scores exactly
              equal, angles within 1e-4 deg, descriptors bit-identical on
-             >= 99.9% of valid keypoints;
+             >= 99.9% of valid keypoints -- FAST and describe both as one
+             launch over all 8 levels (both images) and one level a launch;
   3. slice   FrameBuilder.stereo_pair on 5 rendered stereo pairs with the
              kernels: >= 500 valid features and >= 100 stereo depths a
              frame, median depth error <= 3% against the rendered depth,
              and the same xy / octave / valid as the plain path on the card;
-  4. counts  every kernel launched during the slice;
-  5. times   stereo_pair per frame and each kernel, against the plain path,
-             each kernel also timed inside a CUDA graph;
+  4. counts  exactly one FAST and one describe launch an image and one SAD
+             launch a pair during the slice;
+  5. times   stereo_pair per frame; each kernel against its plain version
+             by CUDA events and inside a CUDA graph, FAST and describe also
+             as 8 one-level launches, in alternating order; each kernel's
+             bound (the least time the card could take for the same work,
+             from this run's inputs) and its share of it;
   6. track   the fused stereo tracking step (slam/track_step.py) on 12
              consecutive rendered poses, 2.25 deg apart: frame 0 gives the
              map, frames 1-11 go through the step replayed as one CUDA
@@ -28,8 +33,10 @@ there is no CUDA device or any phase fails.  Phases:
              the replay equals the eager step (Tcw within 1e-5, assign,
              inlier and vis_local equal) and the kernel path the plain
              path (Tcw within 1e-4, assign equal on >= 99% of valid
-             features); the three kernels appear among the device kernels
-             of a profiled replay; step times (graph, eager, eager plain),
+             features); exactly one FAST and one describe launch an image
+             while the step is warmed up and captured, and a profiled
+             replay runs exactly 2 FAST, 2 describe and 1 SAD kernels;
+             step times (graph, eager, eager plain),
              launches a frame and the device's busy share;
   7. system  the port's stereo System (slam/tracking.py, local mapping,
              system.py) on the card with the sync scheduler:
@@ -86,8 +93,35 @@ MAX_POSE_ERR_M, MAX_POSE_ERR_DEG = 0.05, 0.5
 REPLAY_TCW_ATOL = 1e-5
 PLAIN_TCW_ATOL = 1e-4
 PLAIN_ASSIGN_SHARE = 0.99
-KERNEL_NAMES = {"fast": "fast_cell_kernel", "orb": "orb_describe_kernel",
+KERNEL_NAMES = {"fast": "fast_levels_kernel",
+                "orb": "orb_describe_levels_kernel",
                 "stereo": "sad_strips_kernel"}
+# kernel launches a stereo frame: one FAST and one describe an image
+LAUNCHES_PER_PAIR = {"fast": 2, "orb": 2, "stereo": 1}
+
+# the bounds: NVIDIA's H100 SXM data sheet, at a 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12     # outside the tensor cores
+FP64_OPS_PER_S = 34e12     # outside the tensor cores
+# csrc/fast.cu per pixel: the early exit's 4 compass differences, 8 pair
+# min/max, 6 to reduce them and 4 to test; the NMS's 6 max and 3
+# compares, 4 border compares and 3 selects for the mask and fallback.
+# Per pixel that passes the compass test, also: 12 more ring
+# differences, 2 x 64 doubling min/max and 2 x 15 over the arcs, 1
+# negation, 1 max, 1 subtraction and 2 for the threshold
+FAST_OPS_PER_PX = 4 + 8 + 6 + 4 + 6 + 3 + 4 + 3
+FAST_OPS_PER_PASSING_PX = 12 + 2 * 64 + 2 * 15 + 5
+# csrc/orb.cu per valid keypoint: 749 circle pixels x (2 multiplies + 2
+# adds) in float64; 512 taps x (4 multiplies, 2 adds, 2 roundings) and
+# 256 compares in float32
+DESC_FP64_OPS_PER_KP = 749 * 4
+DESC_FP32_OPS_PER_KP = 512 * 8 + 256
+# csrc/stereo.cu per keypoint: 11 shifts x 121 x (2 subtractions, 1
+# absolute value, 1 add)
+SAD_OPS_PER_KP = 11 * 121 * 4
+# a FAST low threshold below any score: every pixel passes the kernel's
+# compass-point early exit, so the launch does the full work everywhere
+NO_EXIT_MIN_TH = -1e30
 
 # the system phase
 GOLDEN = os.path.join(ROOT, "tests", "data", "golden_stereo_traj.npz")
@@ -147,8 +181,9 @@ def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
 
 def profile_call(torch, fn) -> dict:
     """One call of `fn` under torch.profiler: the device kernels' names,
-    the launch API calls by name, the device's busy share of the call's
-    wall time, and device time by kernel name."""
+    how many times each of the port's kernels ran, the launch API calls by
+    name, the device's busy share of the call's wall time, and device time
+    by kernel family."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
@@ -181,7 +216,10 @@ def profile_call(torch, fn) -> dict:
         fam = kernel_family(e.name)
         by_family[fam] = by_family.get(fam, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
+    counts = {name: sum(kname in e.name for e in dev)
+              for name, kname in KERNEL_NAMES.items()}
     return {"names": {e.name for e in dev}, "n_device": len(dev),
+            "counts": counts,
             "launches": launches,
             "wall_ms": (span.end - span.start) / 1e3,
             "busy_ms": busy / 1e3,
@@ -274,8 +312,13 @@ def track_phase(torch, np, dev, settings, scene, gpu) -> dict:
     print(f"[track] {N_TRACK - 1} frames in "
           f"{time.perf_counter() - t0:.1f} s (first: warm-up and capture); "
           f"kernel launches during warm-up and capture: {launches}")
+    # the step's body ran WARMUP + 1 times (warm-up, then the capture);
+    # the replays launch through the graph, not through the wrappers
+    runs = track_step.GraphStep.WARMUP + 1
     for name, c in launches.items():
-        check(c > 0, f"kernel {name} was not launched by the track step")
+        check(c == LAUNCHES_PER_PAIR[name] * runs,
+              f"kernel {name}: {c} launches in {runs} runs of the step, "
+              f"expected {LAUNCHES_PER_PAIR[name]} a run")
 
     errs = []
     for k, (_, res) in enumerate(frames, 1):
@@ -326,8 +369,10 @@ def track_phase(torch, np, dev, settings, scene, gpu) -> dict:
     prof_graph = profile_call(torch, lambda: step(*last_inputs))
     prof_eager = profile_call(torch, lambda: eager(*dev_inputs))
     for name, kname in KERNEL_NAMES.items():
-        check(any(kname in nm for nm in prof_graph["names"]),
-              f"kernel {kname} not among the replay's device kernels")
+        check(prof_graph["counts"][name] == LAUNCHES_PER_PAIR[name],
+              f"kernel {kname} ran {prof_graph['counts'][name]} times in a "
+              f"replay, expected {LAUNCHES_PER_PAIR[name]}")
+    print(f"[track] kernels in one profiled replay: {prof_graph['counts']}")
     for name, prof in (("replay", prof_graph), ("eager step", prof_eager)):
         print(f"[track] profiled {name}: {prof['n_device']} device kernels "
               f"and copies; launch calls {prof['launches']}; device busy "
@@ -625,92 +670,174 @@ def system_phase(torch, np, dev, settings, scene, gpu) -> dict:
     return {"launches": launches}
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+def alternate(fns: dict, timer, rounds: int = 4) -> dict:
+    """Each of `fns` timed by `timer` in turn, the order reversed every
+    round (a, b, c, then c, b, a, ...): {name: [ms of each round]}."""
+    out = {name: [] for name in fns}
+    names = list(fns)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            out[name].append(timer(fns[name]))
+    return out
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false",
-              file=sys.stderr)
-        return 1
 
-    from orb_slam2_tpu_torch.config import Settings
+def bound_ms(n_bytes: float, ops_s: float):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations' time; and which of the two."""
+    bytes_s = n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s
+                                       else "operations")
+
+
+def fast_bound(torch, levels, min_th: float):
+    """FAST over `levels`: each pixel read once and its score written once;
+    the operations of every pixel and, for the pixels that pass the
+    kernel's compass-point early exit on these levels, of the full arc
+    score."""
+    from orb_slam2_tpu_torch.ops import fast
+
+    n_px = sum(lv.numel() for lv in levels)
+    n_pass = 0
+    for lv in levels:
+        c = fast._ring(lv)[[0, 4, 8, 12]] - lv[None]
+        cn = torch.roll(c, -1, 0)
+        dark = torch.minimum(c, cn).amax(0)
+        bright = -torch.maximum(c, cn).amin(0)
+        n_pass += int(((torch.maximum(dark, bright) - 1.0) >= min_th).sum())
+    ops = n_px * FAST_OPS_PER_PX + n_pass * FAST_OPS_PER_PASSING_PX
+    work = {"pixels": n_px, "pixels_past_early_exit": n_pass,
+            "bytes": 8 * n_px, "ops": ops}
+    return (*bound_ms(8 * n_px, ops / FP32_OPS_PER_S), work)
+
+
+def describe_bound(torch, levels, xys, valids, n_rows: int):
+    """Describe over one image's levels: each distinct pixel of `img` under
+    a valid keypoint's circle and of `blur` under its taps read once, the
+    keypoints and valid flags read once, angle and descriptor rows
+    written once; float64 moments and float32 taps a valid keypoint."""
+    from orb_slam2_tpu_torch.ops import brief, orientation
+
+    dev = levels[0].device
+    half = orientation.HALF_PATCH
+    dv, du = [t.to(dev) - half for t in torch.nonzero(
+        torch.from_numpy(orientation.circular_mask() > 0), as_tuple=True)]
+    circle = taps = n_valid = n_kp = 0
+    for lv, xy, v in zip(levels, xys, valids):
+        h, w = lv.shape
+        kp = xy[v].long()
+        cx = kp[:, 0].clamp(half, w - 1 - half)[:, None]
+        cy = kp[:, 1].clamp(half, h - 1 - half)[:, None]
+        circle += torch.unique((cy + dv) * w + cx + du).numel()
+        ang = orientation.ic_angles(lv, xy, v)[v]
+        rows, cols = brief.tap_coords(h, w, xy[v], ang)
+        taps += torch.unique(rows * w + cols).numel()
+        n_valid += int(v.sum())
+        n_kp += xy.shape[0]
+    n_bytes = 4 * (circle + taps) + 9 * n_kp + (4 + 32) * n_rows
+    ops_s = n_valid * (DESC_FP64_OPS_PER_KP / FP64_OPS_PER_S
+                       + DESC_FP32_OPS_PER_KP / FP32_OPS_PER_S)
+    work = {"circle_px": circle, "tap_px": taps, "valid": n_valid,
+            "bytes": n_bytes, "fp64_ops": n_valid * DESC_FP64_OPS_PER_KP,
+            "fp32_ops": n_valid * DESC_FP32_OPS_PER_KP}
+    return (*bound_ms(n_bytes, ops_s), work)
+
+
+def sad_bound(torch, w: int, yc, xl, xr):
+    """SAD over N keypoints: each distinct pixel of the left 11x11 windows
+    and the right 11x21 strips read once, the three index vectors read
+    once, the (N, 11) scores written once."""
+    from orb_slam2_tpu_torch.ops import stereo_cuda
+
+    dev = yc.device
+    rw, rl = stereo_cuda.W, stereo_cuda.L
+    d = torch.arange(-rw, rw + 1, device=dev)
+    ds = torch.arange(-rw - rl, rw + rl + 1, device=dev)
+    rows = (yc.long()[:, None, None] + d[None, :, None]) * w
+    left = torch.unique(rows + xl.long()[:, None, None] + d[None, None, :])
+    right = torch.unique(rows + xr.long()[:, None, None] + ds[None, None, :])
+    n = yc.numel()
+    n_bytes = 4 * (left.numel() + right.numel()) + 12 * n + 44 * n
+    work = {"left_px": left.numel(), "right_px": right.numel(),
+            "bytes": n_bytes, "ops": n * SAD_OPS_PER_KP}
+    return (*bound_ms(n_bytes, n * SAD_OPS_PER_KP / FP32_OPS_PER_S), work)
+
+
+def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
+                    gpu) -> dict:
+    """Phases 2-5: each kernel against its plain version, the slice through
+    FrameBuilder.stereo_pair, the launch counts, and the times and bounds.
+    """
     from orb_slam2_tpu_torch.ops import (
-        cuda_build, fast, fast_cuda, frontend, gaussian, orb_cuda, pyramid,
-        stereo_cuda,
+        fast, fast_cuda, frontend, gaussian, orb_cuda, pyramid, stereo_cuda,
     )
     from orb_slam2_tpu_torch.slam.frame import FrameBuilder
-    from synthetic import CylinderScene, circle_trajectory
-
-    dev = torch.device("cuda", 0)
-    gpu = gpu_line()
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
-
-    # ---- 1. build ------------------------------------------------------
-    t0 = time.perf_counter()
-    so = cuda_build.build()
-    cuda_build.library()
-    print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
-    for ln in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling" in ln:
-            print(f"[build] {ln.strip()}")
-
-    # ---- the data: rendered KITTI-shaped stereo pairs ----------------------
-    settings = Settings(fx=FX, fy=FY, cx=CX, cy=CY, bf=BF, width=W, height=H,
-                        n_features=N_FEATURES, fps=10.0, th_depth=9.5)
-    scene = CylinderScene(settings.K, H, W, radius=8.0, tex_h=2048)
-    poses = circle_trajectory(240, orbit_r=3.0,
-                              total_angle=2 * np.pi * 1.5)[::48][:N_PAIRS]
-    Trl = np.eye(4, dtype=np.float32)
-    Trl[0, 3] = -BF / FX
-    pairs = [(scene.render(T), scene.render(Trl @ T)) for T in poses]
 
     # ---- 2. each kernel against its plain version --------------------------
-    img_l = torch.from_numpy(pairs[0][0].astype(np.uint8)).to(dev)
-    img_r = torch.from_numpy(pairs[0][1].astype(np.uint8)).to(dev)
-    levels = pyramid.compute_pyramid(img_l, 8, settings.scale_factor)
-    budgets = frontend.level_budgets(N_FEATURES, 8, settings.scale_factor)
     border = frontend.EDGE_THRESHOLD - 3
-    blurred = [gaussian.blur7x7(lv) for lv in levels]
-    per_level = []
-    fast_err = 0.0
-    for lv, bud in zip(levels, budgets):
-        k = fast_cuda.detect_with_fallback_cuda(lv, 20, 7, border)
-        p = fast_cuda.detect_with_fallback_plain(lv, 20, 7, border)
-        torch.cuda.synchronize()
-        fast_err = max(fast_err, float((k - p).abs().max()))
-        check(torch.equal(k, p), f"FAST map differs at level {tuple(lv.shape)}")
-        check(int((p > 0).sum()) > 0, "FAST found no corners")
-        xy, _, valid = fast.select_topk_grid(p, bud, 24)
-        per_level.append((xy, valid))
-    print(f"[fast] 8 levels {[tuple(lv.shape) for lv in levels]} "
-          f"exactly equal")
-
-    ang_err = 0.0
+    budgets = frontend.level_budgets(N_FEATURES, 8, settings.scale_factor)
+    n_rows = frontend.padded_total(N_FEATURES, 8, settings.scale_factor)
+    img_l, img_r = [torch.from_numpy(im.astype(np.uint8)).to(dev)
+                    for im in pairs[0]]
+    per_image = []     # (levels, blurred, xys, valids) of the left, right
+    fast_err = ang_err = 0.0
     n_same = n_valid = 0
-    for lv, bl, (xy, valid) in zip(levels, blurred, per_level):
-        ka, kd = orb_cuda.describe_oriented_cuda(lv, bl, xy, valid)
-        pa, pd = orb_cuda.describe_oriented_plain(lv, bl, xy, valid)
+    for side, img in (("left", img_l), ("right", img_r)):
+        levels = pyramid.compute_pyramid(img, 8, settings.scale_factor)
+        plain_maps = fast_cuda.detect_levels_plain(levels, 20, 7, border)
+        multi = fast_cuda.detect_levels_cuda(levels, 20, 7, border)
+        single = [fast_cuda.detect_with_fallback_cuda(lv, 20, 7, border)
+                  for lv in levels]
         torch.cuda.synchronize()
+        for l, (m, s1, p) in enumerate(zip(multi, single, plain_maps)):
+            fast_err = max(fast_err, float((m - p).abs().max()),
+                           float((s1 - p).abs().max()))
+            check(torch.equal(m, p), f"FAST map ({side}, 8 levels a "
+                  f"launch) differs at level {l}")
+            check(torch.equal(s1, p), f"FAST map ({side}, one level a "
+                  f"launch) differs at level {l}")
+            check(int((p > 0).sum()) > 0, "FAST found no corners")
+        print(f"[fast] {side}: 8 levels {[tuple(lv.shape) for lv in levels]}"
+              f" exactly equal, as one launch and as one launch a level")
+
+        picks = [fast.select_topk_grid(p, b, 24)
+                 for p, b in zip(plain_maps, budgets)]
+        xys, _, valids = zip(*picks)
+        blurred = [gaussian.blur7x7(lv) for lv in levels]
+        ka, kd = orb_cuda.describe_levels_cuda(levels, blurred, xys, valids,
+                                               n_rows)
+        pa, pd = orb_cuda.describe_levels_plain(levels, blurred, xys, valids,
+                                                n_rows)
+        sa, sd = zip(*[orb_cuda.describe_oriented_cuda(*a)
+                       for a in zip(levels, blurred, xys, valids)])
+        torch.cuda.synchronize()
+        n_kp = sum(budgets)
+        valid = torch.cat([*valids, valids[0].new_zeros(n_rows - n_kp)])
         ang_err = max(ang_err, float(circ_diff(ka, pa)[valid].max()))
-        n_same += int((kd == pd).all(1)[valid].sum())
+        same = int((kd == pd).all(1)[valid].sum())
+        n_same += same
         n_valid += int(valid.sum())
-        check(bool((kd[~valid] == 0).all()), "descriptor of an invalid kp")
+        check(bool((kd[~valid] == 0).all()) and bool((ka[~valid] == 0).all()),
+              "descriptor or angle of an invalid or padding row")
+        check(torch.equal(torch.cat(sa), ka[:n_kp])
+              and torch.equal(torch.cat(sd), kd[:n_kp]),
+              "describe as one launch a level differs from one launch")
+        print(f"[describe] {side}: budgets {budgets}, {n_rows} rows: "
+              f"descriptors identical on {same}/{int(valid.sum())} valid "
+              f"keypoints; one launch a level equals one launch")
+        per_image.append((levels, blurred, xys, valids))
     desc_share = n_same / max(n_valid, 1)
-    print(f"[describe] budgets {budgets}: max angle err {ang_err:.3g} deg, "
+    print(f"[describe] both images: max angle err {ang_err:.3g} deg, "
           f"descriptors identical on {n_same}/{n_valid} = "
           f"{100 * desc_share:.3f}% of valid keypoints")
     check(ang_err <= ANGLE_ATOL_DEG, f"angle error {ang_err} deg")
     check(desc_share >= DESC_MIN_SHARE, f"descriptor share {desc_share}")
 
-    n_sad = frontend.padded_total(N_FEATURES, 8, settings.scale_factor)
     rng = np.random.default_rng(0)
     lo, hi = stereo_cuda.W + stereo_cuda.L, W - 1 - stereo_cuda.W - stereo_cuda.L
     yc = torch.from_numpy(rng.integers(stereo_cuda.W, H - stereo_cuda.W,
-                                       n_sad).astype(np.int32)).to(dev)
-    xl = torch.from_numpy(rng.integers(lo, hi + 1, n_sad).astype(np.int32)).to(dev)
-    xr = (xl - torch.from_numpy(rng.integers(0, 60, n_sad).astype(np.int32))
+                                       n_rows).astype(np.int32)).to(dev)
+    xl = torch.from_numpy(rng.integers(lo, hi + 1, n_rows).astype(np.int32)).to(dev)
+    xr = (xl - torch.from_numpy(rng.integers(0, 60, n_rows).astype(np.int32))
           .to(dev)).clamp(lo, hi).int()
     lf, rf = img_l.float(), img_r.float()
     ks = stereo_cuda.sad_strips_cuda(lf, rf, yc, xl, xr)
@@ -718,7 +845,7 @@ def main() -> int:
     torch.cuda.synchronize()
     sad_err = float((ks - ps).abs().max())
     check(torch.equal(ks, ps), f"SAD differs by up to {sad_err}")
-    print(f"[sad] N={n_sad} on {H}x{W}: exactly equal")
+    print(f"[sad] N={n_rows} on {H}x{W}: exactly equal")
 
     # ---- 3. the slice, through the kernels ---------------------------------
     fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
@@ -751,7 +878,7 @@ def main() -> int:
               f"{np.array_equal(ff.octave, pff.octave)}/"
               f"{np.array_equal(ff.valid, pff.valid)}, descriptors "
               f"{100 * same_desc:.3f}%, matched set {100 * same_depth:.3f}%")
-        check(ff.xy.shape == (n_sad, 2) and np.isfinite(ff.xy).all(),
+        check(ff.xy.shape == (n_rows, 2) and np.isfinite(ff.xy).all(),
               "xy shape or values")
         check(n_valid >= MIN_VALID, f"frame {i}: {n_valid} valid features")
         check(int(has_d.sum()) >= MIN_DEPTHS, f"frame {i}: too few depths")
@@ -762,9 +889,12 @@ def main() -> int:
               f"frame {i}: kernel and plain paths differ in xy/octave/valid")
 
     # ---- 4. launch counts --------------------------------------------------
-    print(f"[counts] launches during the slice: {launches}")
+    print(f"[counts] launches during the slice ({N_PAIRS} stereo pairs): "
+          f"{launches}")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the slice")
+        check(n == LAUNCHES_PER_PAIR[name] * N_PAIRS,
+              f"kernel {name}: {n} launches for {N_PAIRS} pairs, expected "
+              f"{LAUNCHES_PER_PAIR[name]} a pair")
 
     # ---- 5. times ----------------------------------------------------------
     for b in (builder, plain_builder):   # warm-up
@@ -785,37 +915,107 @@ def main() -> int:
         "kernel_ms": statistics.median(frame_ms["kernel"]),
         "plain_ms": statistics.median(frame_ms["plain"]), "gpu": gpu}))
 
-    fast_ms = cuda_ms(torch, lambda: [fast_cuda.detect_with_fallback_cuda(
-        lv, 20, 7, border) for lv in levels])
-    fast_plain_ms = cuda_ms(torch, lambda: [
-        fast_cuda.detect_with_fallback_plain(lv, 20, 7, border)
-        for lv in levels])
-    orb_args = list(zip(levels, blurred, *zip(*per_level)))
-    orb_ms = cuda_ms(torch, lambda: [orb_cuda.describe_oriented_cuda(*a)
-                                     for a in orb_args])
-    orb_plain_ms = cuda_ms(torch, lambda: [
-        orb_cuda.describe_oriented_plain(*a) for a in orb_args])
-    sad_ms = cuda_ms(torch, lambda: stereo_cuda.sad_strips_cuda(
-        lf, rf, yc, xl, xr))
-    sad_plain_ms = cuda_ms(torch, lambda: stereo_cuda.sad_strips_plain(
-        lf, rf, yc, xl, xr))
-    # the same launch loops, each captured once in a CUDA graph: the
-    # wrappers' Python cost leaves the measurement
-    in_graph = {
-        "fast": (lambda: [fast_cuda.detect_with_fallback_cuda(
-                     lv, 20, 7, border) for lv in levels],
-                 lambda: [fast_cuda.detect_with_fallback_plain(
-                     lv, 20, 7, border) for lv in levels]),
-        "orb": (lambda: [orb_cuda.describe_oriented_cuda(*a)
-                         for a in orb_args],
-                lambda: [orb_cuda.describe_oriented_plain(*a)
-                         for a in orb_args]),
-        "stereo": (lambda: stereo_cuda.sad_strips_cuda(lf, rf, yc, xl, xr),
-                   lambda: stereo_cuda.sad_strips_plain(lf, rf, yc, xl,
-                                                        xr)),
+    # each kernel on the left image: one launch over the 8 levels, the
+    # same kernel as 8 one-level launches, and the plain version
+    levels, blurred, xys, valids = per_image[0]
+    variants = {
+        "fast": {
+            "kernel": lambda: fast_cuda.detect_levels_cuda(levels, 20, 7,
+                                                           border),
+            "kernel_8": lambda: [fast_cuda.detect_with_fallback_cuda(
+                lv, 20, 7, border) for lv in levels],
+            # min_th far below any score: no pixel takes the early exit
+            "kernel_no_exit": lambda: fast_cuda.detect_levels_cuda(
+                levels, 20, NO_EXIT_MIN_TH, border),
+            "plain": lambda: fast_cuda.detect_levels_plain(levels, 20, 7,
+                                                           border)},
+        "orb": {
+            "kernel": lambda: orb_cuda.describe_levels_cuda(
+                levels, blurred, xys, valids, n_rows),
+            "kernel_8": lambda: [orb_cuda.describe_oriented_cuda(*a)
+                                 for a in zip(levels, blurred, xys, valids)],
+            "plain": lambda: orb_cuda.describe_levels_plain(
+                levels, blurred, xys, valids, n_rows)},
+        "stereo": {
+            "kernel": lambda: stereo_cuda.sad_strips_cuda(lf, rf, yc, xl, xr),
+            "plain": lambda: stereo_cuda.sad_strips_plain(lf, rf, yc, xl,
+                                                          xr)},
     }
-    graph_times = {name: (graph_ms(torch, k), graph_ms(torch, p))
-                   for name, (k, p) in in_graph.items()}
+    times = {}
+    for name, fns in variants.items():
+        ev = alternate(fns, lambda fn: cuda_ms(torch, fn))
+        gr = alternate(fns, lambda fn: graph_ms(torch, fn))
+        times[name] = {**{k: statistics.median(v) for k, v in ev.items()},
+                       **{f"graph_{k}": statistics.median(v)
+                          for k, v in gr.items()},
+                       "graph_kernel_range": [min(gr["kernel"]),
+                                              max(gr["kernel"])]}
+    bounds = {"fast": fast_bound(torch, levels, 7.0),
+              "orb": describe_bound(torch, levels, xys, valids, n_rows),
+              "stereo": sad_bound(torch, W, yc, xl, xr)}
+    for name, (b_ms, b_by, work) in bounds.items():
+        t = times[name]
+        print(f"[times] {name}: kernel {t['kernel']:.4f} ms events, "
+              f"{t['graph_kernel']:.4f} ms in a graph "
+              f"(rounds {t['graph_kernel_range']}); "
+              + (f"as 8 one-level launches {t['kernel_8']:.4f} / "
+                 f"{t['graph_kernel_8']:.4f} ms; " if "kernel_8" in t else "")
+              + (f"with no pixel past the early exit {t['kernel_no_exit']:.4f}"
+                 f" / {t['graph_kernel_no_exit']:.4f} ms; "
+                 if "kernel_no_exit" in t else "")
+              + f"plain {t['plain']:.3f} / {t['graph_plain']:.3f} ms; "
+              f"bound {1e3 * b_ms:.3f} us by {b_by} {work}; share of bound "
+              f"(bound / graph time) {100 * b_ms / t['graph_kernel']:.1f}%")
+
+    return {"launches": launches, "times": times, "bounds": bounds,
+            "errs": {"fast": fast_err, "orb": ang_err, "stereo": sad_err},
+            "desc_share": desc_share, "n_rows": n_rows,
+            "n_kp": sum(budgets)}
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+
+    from orb_slam2_tpu_torch.config import Settings
+    from orb_slam2_tpu_torch.ops import cuda_build
+    from synthetic import CylinderScene, circle_trajectory
+
+    dev = torch.device("cuda", 0)
+    gpu = gpu_line()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    # ---- 1. build ------------------------------------------------------
+    t0 = time.perf_counter()
+    so = cuda_build.build()
+    cuda_build.library()
+    print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
+    for ln in so.with_suffix(".log").read_text().splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            print(f"[build] {ln.strip()}")
+
+    # ---- the data: rendered KITTI-shaped stereo pairs ----------------------
+    settings = Settings(fx=FX, fy=FY, cx=CX, cy=CY, bf=BF, width=W, height=H,
+                        n_features=N_FEATURES, fps=10.0, th_depth=9.5)
+    scene = CylinderScene(settings.K, H, W, radius=8.0, tex_h=2048)
+    poses = circle_trajectory(240, orbit_r=3.0,
+                              total_angle=2 * np.pi * 1.5)[::48][:N_PAIRS]
+    Trl = np.eye(4, dtype=np.float32)
+    Trl[0, 3] = -BF / FX
+    pairs = [(scene.render(T), scene.render(Trl @ T)) for T in poses]
+
+    # ---- 2-5. the kernels, the slice, the counts, the times -------------
+    front = frontend_phases(torch, np, dev, settings, scene, poses, pairs,
+                            gpu)
+    launches, times, bounds = (front["launches"], front["times"],
+                               front["bounds"])
+    n_rows = front["n_rows"]
 
     # ---- 6. the fused tracking step, one CUDA graph a frame --------------
     track = track_phase(torch, np, dev, settings, scene, gpu)
@@ -823,45 +1023,50 @@ def main() -> int:
     # ---- 7. the stereo System: golden, KITTI-shaped run, one local BA ------
     golden_phase(np, dev)
     system = system_phase(torch, np, dev, settings, scene, gpu)
-    kernels = [
-        {"name": "fast_detect_with_fallback", "route": "cuda",
-         "source": "orb_slam2_tpu_torch/csrc/fast.cu",
-         "replaces": "orb_slam2_tpu/ops/fast_pallas.py:137",
-         "launches": launches["fast"], "max_abs_err": fast_err,
-         "ms": fast_ms, "plain_ms": fast_plain_ms,
-         "graph_ms": graph_times["fast"][0],
-         "plain_graph_ms": graph_times["fast"][1],
-         "launches_track_step": track["launches"]["fast"],
-         "launches_system": system["launches"]["fast"],
-         "per": "8 pyramid levels of one 376x1240 image"},
-        {"name": "orb_describe_oriented", "route": "cuda",
-         "source": "orb_slam2_tpu_torch/csrc/orb.cu",
-         "replaces": "orb_slam2_tpu/ops/orb_pallas.py:174",
-         "launches": launches["orb"], "max_abs_err": ang_err,
-         "ms": orb_ms, "plain_ms": orb_plain_ms,
-         "graph_ms": graph_times["orb"][0],
-         "plain_graph_ms": graph_times["orb"][1],
-         "launches_track_step": track["launches"]["orb"],
-         "launches_system": system["launches"]["orb"],
-         "per": "8 levels' budgets of one image (2000 keypoints); "
-                "max_abs_err is the angle in degrees",
-         "desc_identical_share": desc_share},
-        {"name": "stereo_sad_strips", "route": "cuda",
-         "source": "orb_slam2_tpu_torch/csrc/stereo.cu",
-         "replaces": "orb_slam2_tpu/ops/stereo_pallas.py:125",
-         "launches": launches["stereo"], "max_abs_err": sad_err,
-         "ms": sad_ms, "plain_ms": sad_plain_ms,
-         "graph_ms": graph_times["stereo"][0],
-         "plain_graph_ms": graph_times["stereo"][1],
-         "launches_track_step": track["launches"]["stereo"],
-         "launches_system": system["launches"]["stereo"],
-         "per": f"N={n_sad} keypoints on level 0"},
-    ]
+    meta = {
+        "fast": ("fast_detect_with_fallback", "orb_slam2_tpu_torch/csrc/fast.cu",
+                 "orb_slam2_tpu/ops/fast_pallas.py:137", front["errs"]["fast"],
+                 "8 pyramid levels of one 376x1240 image, one launch"),
+        "orb": ("orb_describe_oriented", "orb_slam2_tpu_torch/csrc/orb.cu",
+                "orb_slam2_tpu/ops/orb_pallas.py:174", front["errs"]["orb"],
+                f"8 levels' budgets of one image ({front['n_kp']} keypoints "
+                f"in {n_rows} rows), one launch; max_abs_err is the angle "
+                "in degrees"),
+        "stereo": ("stereo_sad_strips", "orb_slam2_tpu_torch/csrc/stereo.cu",
+                   "orb_slam2_tpu/ops/stereo_pallas.py:125",
+                   front["errs"]["stereo"],
+                   f"N={n_rows} keypoints on level 0"),
+    }
+    kernels = []
+    for key, (name, source, replaces, err, per) in meta.items():
+        t = times[key]
+        b_ms, b_by, work = bounds[key]
+        k = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches[key],
+             "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "graph_ms": t["graph_kernel"],
+             "plain_graph_ms": t["graph_plain"],
+             "share_of_bound_graph": b_ms / t["graph_kernel"],
+             "launches_per_stereo_frame": launches[key] / N_PAIRS,
+             "launches_track_step": track["launches"][key],
+             "launches_system": system["launches"][key],
+             "bound_work": work, "per": per}
+        if "kernel_8" in t:
+            k["ms_8_launches"] = t["kernel_8"]
+            k["graph_ms_8_launches"] = t["graph_kernel_8"]
+        if "kernel_no_exit" in t:
+            k["graph_ms_no_early_exit"] = t["graph_kernel_no_exit"]
+        if key == "orb":
+            k["desc_identical_share"] = front["desc_share"]
+        kernels.append(k)
     for k in kernels:
         print(json.dumps({"metric": "kernel_ms", "name": k["name"],
                           "ms": k["ms"], "plain_ms": k["plain_ms"],
                           "graph_ms": k["graph_ms"],
                           "plain_graph_ms": k["plain_graph_ms"],
+                          "bound_ms": k["bound_ms"],
+                          "share_of_bound_graph": k["share_of_bound_graph"],
                           "per": k["per"], "gpu": gpu}))
     print(gpu)
     print(json.dumps({"kernels": kernels}))

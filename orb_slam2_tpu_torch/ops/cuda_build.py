@@ -36,12 +36,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # img, out, h, w, ini_th, min_th, border, cell, stream
-    "orb_fast_detect": (_P, _P, _I, _I, _F, _F, _I, _I, _P),
+    # n_levels, ptrs (host void*[2n]), ints (host int[4n]), n_cells,
+    # ini_th, min_th, border, cell, stream
+    "orb_fast_levels": (_I, _P, _P, _I, _F, _F, _I, _I, _P),
     # pattern, umax, stream
     "orb_set_tables": (_P, _P, _P),
-    # img, blur, h, w, xy, valid, n, angle, desc, stream
-    "orb_describe": (_P, _P, _I, _I, _P, _P, _I, _P, _P, _P),
+    # n_levels, ptrs (host void*[4n]), ints (host int[4n]), n_rows, angle,
+    # desc, stream
+    "orb_describe_levels": (_I, _P, _P, _I, _P, _P, _P),
     # left, right, h, w, yc, xl, xr, n, out, stream
     "orb_sad_strips": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P),
 }
@@ -119,6 +121,13 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
 def check_error(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def host_array(ctype, values) -> ctypes.Array:
+    """`values` as a ctypes array in host memory, for a C entry that copies
+    a level table into a kernel's by-value parameter; pass it as
+    `ctypes.addressof(array)` and keep the array alive for the call."""
+    return (ctype * len(values))(*values)
 
 
 def stream_ptr(device: torch.device) -> int:

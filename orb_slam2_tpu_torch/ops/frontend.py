@@ -75,39 +75,42 @@ def extract(
     cell: int = 24,
     plain: bool = False,
 ) -> Features:
-    """(H, W) uint8/float32 image tensor -> Features with fixed shape."""
+    """(H, W) uint8/float32 image tensor -> Features with fixed shape.
+
+    On a CUDA image FAST and the describe kernel each run once over all
+    levels; the grid top-K and the blur run per level."""
     levels = pyramid.compute_pyramid(img, n_levels, scale_factor)
     budgets = level_budgets(n_features, n_levels, scale_factor)
     n_total = padded_total(n_features, n_levels, scale_factor)
-    detect = (fast_cuda.detect_with_fallback_plain if plain
-              else fast_cuda.detect_with_fallback)
-    describe = (orb_cuda.describe_oriented_plain if plain
-                else orb_cuda.describe_oriented)
+    detect = (fast_cuda.detect_levels_plain if plain
+              else fast_cuda.detect_levels)
+    describe = (orb_cuda.describe_levels_plain if plain
+                else orb_cuda.describe_levels)
 
     border = EDGE_THRESHOLD - 3  # FAST margin; ref ComputeKeyPointsOctTree
-    outs = {"xy": [], "resp": [], "oct": [], "ang": [], "desc": [], "valid": []}
-    for l, lvl in enumerate(levels):
-        score = detect(lvl, ini_th, min_th, border)
-        xy, resp, valid = fast.select_topk_grid(score, budgets[l], cell)
-        blurred = gaussian.blur7x7(lvl)
-        ang, desc = describe(lvl, blurred, xy, valid)
-        # float32(scale_factor ** l), as jnp.float32 of the Python double
-        scale = float(np.float32(scale_factor ** l))
-        outs["xy"].append(xy.float() * scale)
-        outs["resp"].append(resp)
-        outs["oct"].append(torch.full((budgets[l],), l, dtype=torch.int32,
-                                      device=img.device))
-        outs["ang"].append(ang)
-        outs["desc"].append(desc)
-        outs["valid"].append(valid)
+    scores = detect(levels, ini_th, min_th, border)
+    picks = [fast.select_topk_grid(s, b, cell)
+             for s, b in zip(scores, budgets)]
+    blurred = [gaussian.blur7x7(lvl) for lvl in levels]
+    xys, resps, valids = zip(*picks)
+    ang, desc = describe(levels, blurred, xys, valids, n_total)
 
-    cat = {k: torch.cat(v) for k, v in outs.items()}
+    # float32(scale_factor ** l), as jnp.float32 of the Python double
+    scales = [float(np.float32(scale_factor ** l)) for l in range(n_levels)]
+    cat = {
+        "xy": torch.cat([xy.float() * s for xy, s in zip(xys, scales)]),
+        "resp": torch.cat(resps),
+        "oct": torch.cat([torch.full((b,), l, dtype=torch.int32,
+                                     device=img.device)
+                          for l, b in enumerate(budgets)]),
+        "valid": torch.cat(valids),
+    }
     pad = n_total - cat["xy"].shape[0]
     if pad > 0:
         cat = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
                for k, v in cat.items()}
-    return Features(cat["xy"], cat["resp"], cat["oct"], cat["ang"],
-                    cat["desc"], cat["valid"])
+    return Features(cat["xy"], cat["resp"], cat["oct"], ang, desc,
+                    cat["valid"])
 
 
 def extract_stereo_pair(

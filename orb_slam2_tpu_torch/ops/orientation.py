@@ -7,8 +7,10 @@ of radius 15 around each keypoint, angle = atan2(m01, m10) in degrees.
 The moments are summed in float64 and rounded once to float32.  The
 float64 sum is exact in any order whenever every pixel of the patch is 0
 or at least 2^-8 (each term is then a multiple of 2^-31 below 2^22), so
-the Hopper kernel (`orb_cuda.describe_oriented`), which sums in another
-order, gets the same float32 moments and hence the same angles.  On an
+the Hopper kernel (`orb_cuda.describe_levels`), which sums in another
+order, gets the same float32 moments and hence the same angles.  Resized
+levels can hold smaller pixels; there the two float64 sums may differ in
+the last bits, and their float32 roundings almost always agree.  On an
 integer-valued level the float32 einsum of the JAX package is exact too;
 on the resized levels it differs from this by its own rounding.
 """

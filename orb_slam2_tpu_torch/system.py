@@ -9,8 +9,8 @@ map savers.
 Port of orb_slam2_tpu/system.py for stereo and RGB-D with
 `scheduler="sync"`: mapping runs deterministically inline after each
 keyframe (the testing mode SURVEY §4.4 calls for).  `device` is where
-the frontend, the tracking step and the mapper run; "cuda" raises
-without a card.  Waiting for later ROADMAP items, each raising
+the frontend, the tracking step and the mapper run: the card unless the
+caller asks for "cpu"; "cuda" raises without a card.  Waiting for later ROADMAP items, each raising
 NotImplementedError: the async scheduler (item 5), the vocabulary, loop
 closing and relocalization (item 6), monocular (item 7), and the viewer
 and grid-map savers (item 8).
@@ -41,7 +41,7 @@ class System:
         scheduler: Optional[str] = None,
         use_viewer: bool = False,
         *,
-        device,
+        device="cuda",
     ):
         if isinstance(settings, str):
             settings = Settings.from_yaml(settings)
