@@ -10,21 +10,30 @@ there is no CUDA device or any phase fails.  Phases:
   1. build   compile the three Hopper kernels from csrc/ with nvcc;
   2. kernels hold each kernel against its plain PyTorch version on the
              card, at the shapes of the main path (a 376x1240 KITTI-shaped
-             stereo pair, 2000 features): FAST maps and SAD scores exactly
-             equal, angles within 1e-4 deg, descriptors bit-identical on
-             >= 99.9% of valid keypoints -- FAST and describe both as one
-             launch over all 8 levels (both images) and one level a launch;
+             stereo pair, 2000 features): FAST maps exactly equal, angles
+             within 1e-4 deg, descriptors bit-identical on >= 99.9% of
+             valid keypoints -- FAST and describe both as one launch over
+             all 8 levels (both images) and one level a launch; the fused
+             stereo refinement's u_right, depth and SAD bit-identical to
+             refine_plain's (torch.equal) on random matches and on the
+             real Hamming matches of the 5 pairs, and its scores, and the
+             scores-only kernel's, equal to sad_strips_plain;
   3. slice   FrameBuilder.stereo_pair on 5 rendered stereo pairs with the
              kernels: >= 500 valid features and >= 100 stereo depths a
              frame, median depth error <= 3% against the rendered depth,
-             and the same xy / octave / valid as the plain path on the card;
-  4. counts  exactly one FAST and one describe launch an image and one SAD
-             launch a pair during the slice;
+             the same xy / octave / valid as the plain path on the card,
+             and u_right and depth equal to it on >= 99.9% of rows;
+  4. counts  exactly one FAST and one describe launch an image and one
+             stereo refinement launch a pair during the slice, and no
+             scores-only launch;
   5. times   stereo_pair per frame; each kernel against its plain version
              by CUDA events and inside a CUDA graph, FAST and describe also
-             as 8 one-level launches, in alternating order; each kernel's
-             bound (the least time the card could take for the same work,
-             from this run's inputs) and its share of it;
+             as 8 one-level launches, the stereo refinement also as the
+             unfused step 3 (scores launch plus the PyTorch epilogue) and
+             as the scores-only launch, and at N = 256, 1024 and 2048, in
+             alternating order; each kernel's bound (the least time the
+             card could take for the same work, from this run's inputs)
+             and its share of it;
   6. track   the fused stereo tracking step (slam/track_step.py) on 12
              consecutive rendered poses, 2.25 deg apart: frame 0 gives the
              map, frames 1-11 go through the step replayed as one CUDA
@@ -35,7 +44,8 @@ there is no CUDA device or any phase fails.  Phases:
              path (Tcw within 1e-4, assign equal on >= 99% of valid
              features); exactly one FAST and one describe launch an image
              while the step is warmed up and captured, and a profiled
-             replay runs exactly 2 FAST, 2 describe and 1 SAD kernels;
+             replay runs exactly 2 FAST, 2 describe and 1 stereo
+             refinement kernels, and its node count is printed;
              step times (graph, eager, eager plain),
              launches a frame and the device's busy share;
   7. system  the port's stereo System (slam/tracking.py, local mapping,
@@ -79,9 +89,11 @@ BF = 386.1448
 N_FEATURES = 2000
 N_PAIRS = 5
 N_TIMED = 20
+BACK_TO_BACK = 20     # launches in one graph for a kernel's device time
 
 ANGLE_ATOL_DEG = 1e-4
 DESC_MIN_SHARE = 0.999
+STEREO_MIN_SHARE = 0.999
 MIN_VALID = 500       # the stereo-init floor (slam/tracking.py:1171)
 MIN_DEPTHS = 100
 MAX_MEDIAN_DEPTH_ERR = 0.03
@@ -95,7 +107,7 @@ PLAIN_TCW_ATOL = 1e-4
 PLAIN_ASSIGN_SHARE = 0.99
 KERNEL_NAMES = {"fast": "fast_levels_kernel",
                 "orb": "orb_describe_levels_kernel",
-                "stereo": "sad_strips_kernel"}
+                "stereo": "stereo_refine_kernel"}
 # kernel launches a stereo frame: one FAST and one describe an image
 LAUNCHES_PER_PAIR = {"fast": 2, "orb": 2, "stereo": 1}
 
@@ -117,8 +129,13 @@ FAST_OPS_PER_PASSING_PX = 12 + 2 * 64 + 2 * 15 + 5
 DESC_FP64_OPS_PER_KP = 749 * 4
 DESC_FP32_OPS_PER_KP = 512 * 8 + 256
 # csrc/stereo.cu per keypoint: 11 shifts x 121 x (2 subtractions, 1
-# absolute value, 1 add)
+# absolute value, 1 add); then the epilogue: the centres' 3 conversions
+# and 6 clamps, 10 compares for the first minimum, and the parabola and
+# depth's 26 float operations (denominator 3, its test 3, numerator 2,
+# max 1, division 1, clamp 2, u_right 4, disparity 1, window 3, snap 2,
+# depth 1, 3 selects)
 SAD_OPS_PER_KP = 11 * 121 * 4
+REFINE_OPS_PER_KP = 9 + 10 + 26
 # a FAST low threshold below any score: every pixel passes the kernel's
 # compass-point early exit, so the launch does the full work everywhere
 NO_EXIT_MIN_TH = -1e30
@@ -162,11 +179,9 @@ def cuda_ms(torch, fn, iters: int = 10, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
-    """`fn` captured once in a CUDA graph: median over `reps` of the mean
-    time of `iters` replays, by CUDA events.  No Python runs between the
-    kernels, so this is the device's time plus the graph's own launch
-    gaps."""
+def capture(torch, fn, calls: int = 1):
+    """`calls` calls of `fn`, warmed up and captured back to back in one
+    CUDA graph."""
     fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -175,8 +190,33 @@ def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(torch, graph.replay, iters, reps)
+        for _ in range(calls):
+            fn()
+    return graph
+
+
+def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
+    """`fn` captured once in a CUDA graph: median over `reps` of the mean
+    time of `iters` replays, by CUDA events.  No Python runs between the
+    kernels, so this is the device's time plus the graph's own launch
+    gaps; for a kernel of a few us it is the rate at which the host
+    launches graphs."""
+    return cuda_ms(torch, capture(torch, fn).replay, iters, reps)
+
+
+def back_to_back(torch, fn, kname: str) -> dict:
+    """BACK_TO_BACK calls of `fn` in one CUDA graph: the replay's time a
+    call by CUDA events (the kernels and the gaps between graph nodes, no
+    host launch between them), and the mean device duration of the
+    kernels named `kname` in one profiled replay (the kernel alone)."""
+    graph = capture(torch, fn, BACK_TO_BACK)
+    ms = cuda_ms(torch, graph.replay, 5, 5) / BACK_TO_BACK
+    runs = [v for name, v in profile_call(
+        torch, graph.replay)["device_ms_by_name"].items() if kname in name]
+    count = sum(c for c, _ in runs)
+    check(count == BACK_TO_BACK, f"{kname}: {count} kernels in a replay of "
+          f"{BACK_TO_BACK} calls")
+    return {"graph_ms": ms, "device_ms": sum(t for _, t in runs) / count}
 
 
 def profile_call(torch, fn) -> dict:
@@ -211,11 +251,13 @@ def profile_call(torch, fn) -> dict:
         if b > a:
             busy += b - a
             end = b
-    by_family = {}
+    by_family, by_name = {}, {}
     for e in dev:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
         fam = kernel_family(e.name)
-        by_family[fam] = by_family.get(fam, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + ms)
     counts = {name: sum(kname in e.name for e in dev)
               for name, kname in KERNEL_NAMES.items()}
     return {"names": {e.name for e in dev}, "n_device": len(dev),
@@ -224,7 +266,8 @@ def profile_call(torch, fn) -> dict:
             "wall_ms": (span.end - span.start) / 1e3,
             "busy_ms": busy / 1e3,
             "busy_share": busy / max(span.end - span.start, 1e-9),
-            "device_ms_by_family": by_family}
+            "device_ms_by_family": by_family,
+            "device_ms_by_name": by_name}
 
 
 def kernel_family(name: str) -> str:
@@ -375,13 +418,18 @@ def track_phase(torch, np, dev, settings, scene, gpu) -> dict:
     print(f"[track] kernels in one profiled replay: {prof_graph['counts']}")
     for name, prof in (("replay", prof_graph), ("eager step", prof_eager)):
         print(f"[track] profiled {name}: {prof['n_device']} device kernels "
-              f"and copies; launch calls {prof['launches']}; device busy "
+              f"and copies (graph nodes run); launch calls "
+              f"{prof['launches']}; device busy "
               f"{prof['busy_ms']:.2f} ms = {100 * prof['busy_share']:.1f}% "
               f"of {prof['wall_ms']:.2f} ms")
     fams = sorted(prof_graph["device_ms_by_family"].items(),
                   key=lambda kv: -kv[1])
     print("[track] replay device ms by kernel family: " + ", ".join(
         f"{k} {v:.3f}" for k, v in fams))
+    by_name = prof_graph["device_ms_by_name"].items()
+    print("[track] the port's kernels in the replay, device us: " + ", ".join(
+        f"{kname} {1e3 * sum(t for nm, (_, t) in by_name if kname in nm):.2f}"
+        for kname in KERNEL_NAMES.values()))
 
     # ---- where a replayed frame's time goes: the frontend and one pose
     # LM, each captured alone in a graph at the step's shapes
@@ -742,10 +790,13 @@ def describe_bound(torch, levels, xys, valids, n_rows: int):
     return (*bound_ms(n_bytes, ops_s), work)
 
 
-def sad_bound(torch, w: int, yc, xl, xr):
-    """SAD over N keypoints: each distinct pixel of the left 11x11 windows
-    and the right 11x21 strips read once, the three index vectors read
-    once, the (N, 11) scores written once."""
+def refine_bound(torch, w: int, yc, xl, xr):
+    """The stereo refinement over N keypoints with these centres: each
+    distinct pixel of the left 11x11 windows and the right 11x21 strips
+    read once; a keypoint's xy (8 B), best_idx (8 B), best_dist (4 B) and
+    the gathered right x (4 B) read once and its u_right, depth and SAD
+    (12 B) written once; bf, min_disp and max_disp read once.  Ops: the
+    SAD terms and the epilogue."""
     from orb_slam2_tpu_torch.ops import stereo_cuda
 
     dev = yc.device
@@ -756,10 +807,11 @@ def sad_bound(torch, w: int, yc, xl, xr):
     left = torch.unique(rows + xl.long()[:, None, None] + d[None, None, :])
     right = torch.unique(rows + xr.long()[:, None, None] + ds[None, None, :])
     n = yc.numel()
-    n_bytes = 4 * (left.numel() + right.numel()) + 12 * n + 44 * n
+    n_bytes = 4 * (left.numel() + right.numel()) + 36 * n + 12
+    ops = n * (SAD_OPS_PER_KP + REFINE_OPS_PER_KP)
     work = {"left_px": left.numel(), "right_px": right.numel(),
-            "bytes": n_bytes, "ops": n * SAD_OPS_PER_KP}
-    return (*bound_ms(n_bytes, n * SAD_OPS_PER_KP / FP32_OPS_PER_S), work)
+            "bytes": n_bytes, "ops": ops}
+    return (*bound_ms(n_bytes, ops / FP32_OPS_PER_S), work)
 
 
 def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
@@ -768,7 +820,8 @@ def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
     FrameBuilder.stereo_pair, the launch counts, and the times and bounds.
     """
     from orb_slam2_tpu_torch.ops import (
-        fast, fast_cuda, frontend, gaussian, orb_cuda, pyramid, stereo_cuda,
+        consts, fast, fast_cuda, frontend, gaussian, orb_cuda, pyramid,
+        stereo, stereo_cuda,
     )
     from orb_slam2_tpu_torch.slam.frame import FrameBuilder
 
@@ -832,29 +885,69 @@ def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
     check(ang_err <= ANGLE_ATOL_DEG, f"angle error {ang_err} deg")
     check(desc_share >= DESC_MIN_SHARE, f"descriptor share {desc_share}")
 
+    # the stereo refinement: the fused launch against refine_plain, its
+    # scores and the scores-only kernel's against sad_strips_plain
+    bf_t, lo_t, hi_t = (consts.scalar(v, dev) for v in (BF, 0.0, FX))
+
+    def check_refine(lf, rf, xy_l, xy_r, best_idx, best_dist, what):
+        scores = torch.empty((xy_l.shape[0], 2 * stereo_cuda.L + 1),
+                             device=dev)
+        args = (lf, rf, xy_l, xy_r, best_idx, best_dist, bf_t, lo_t, hi_t)
+        k = stereo_cuda.refine_cuda(*args, scores=scores)
+        p = stereo_cuda.refine_plain(*args)
+        cen = stereo_cuda.centres(xy_l, xy_r, best_idx, *lf.shape)
+        ks = stereo_cuda.sad_strips_cuda(lf, rf, *cen)
+        ps = stereo_cuda.sad_strips_plain(lf, rf, *cen)
+        torch.cuda.synchronize()
+        err = max(float(torch.where(a == b, 0.0, (a - b).abs()).max())
+                  for a, b in zip((*k, scores, ks), (*p, ps, ps)))
+        print(f"[refine] {what}: N={xy_l.shape[0]}, {int((p[1] > 0).sum())}"
+              f" depths; u_right/depth/sad equal "
+              f"{[torch.equal(a, b) for a, b in zip(k, p)]}, scores equal "
+              f"{torch.equal(scores, ps)}, scores-only kernel equal "
+              f"{torch.equal(ks, ps)}; max abs err {err}")
+        for name, a, b in zip(("u_right", "depth", "sad"), k, p):
+            check(torch.equal(a, b), f"refine {name} differs ({what})")
+        check(torch.equal(scores, ps) and torch.equal(ks, ps),
+              f"SAD scores differ ({what})")
+        return err
+
     rng = np.random.default_rng(0)
-    lo, hi = stereo_cuda.W + stereo_cuda.L, W - 1 - stereo_cuda.W - stereo_cuda.L
-    yc = torch.from_numpy(rng.integers(stereo_cuda.W, H - stereo_cuda.W,
-                                       n_rows).astype(np.int32)).to(dev)
-    xl = torch.from_numpy(rng.integers(lo, hi + 1, n_rows).astype(np.int32)).to(dev)
-    xr = (xl - torch.from_numpy(rng.integers(0, 60, n_rows).astype(np.int32))
-          .to(dev)).clamp(lo, hi).int()
-    lf, rf = img_l.float(), img_r.float()
-    ks = stereo_cuda.sad_strips_cuda(lf, rf, yc, xl, xr)
-    ps = stereo_cuda.sad_strips_plain(lf, rf, yc, xl, xr)
-    torch.cuda.synchronize()
-    sad_err = float((ks - ps).abs().max())
-    check(torch.equal(ks, ps), f"SAD differs by up to {sad_err}")
-    print(f"[sad] N={n_rows} on {H}x{W}: exactly equal")
+    n = n_rows
+    xy_l = np.stack([rng.uniform(-4, W + 4, n), rng.uniform(-4, H + 4, n)], 1)
+    best_idx = rng.permutation(n)
+    xy_r = np.empty_like(xy_l)
+    xy_r[best_idx] = xy_l - np.stack([rng.uniform(-5, 70, n), np.zeros(n)], 1)
+    rand = [torch.from_numpy(a).to(dev) for a in (
+        xy_l.astype(np.float32), xy_r.astype(np.float32), best_idx,
+        rng.integers(0, 100, n).astype(np.int32))]
+    sad_err = check_refine(img_l.float(), img_r.float(), *rand,
+                           "random matches")
+    sf = torch.from_numpy(settings.scale_factors().astype(np.float32)).to(dev)
+    real = []     # the real step-1/2 matches of each pair, for the timing
+    for i, pair in enumerate(pairs):
+        il, ir = [torch.from_numpy(im.astype(np.uint8)).to(dev) for im in pair]
+        fl, fr = [frontend.extract(im, N_FEATURES, settings.n_levels,
+                                   settings.scale_factor,
+                                   settings.ini_th_fast, settings.min_th_fast)
+                  for im in (il, ir)]
+        bi, bd = stereo.row_matches(fl.xy, fl.octave, fl.desc, fl.valid,
+                                    fr.xy, fr.octave, fr.desc, fr.valid, sf,
+                                    lo_t, hi_t)
+        real.append((il.float(), ir.float(), fl.xy, fr.xy, bi, bd))
+        sad_err = max(sad_err, check_refine(*real[-1],
+                                            f"pair {i} Hamming matches"))
 
     # ---- 3. the slice, through the kernels ---------------------------------
     fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
+    stereo_cuda.strips_launches = 0
     builder = FrameBuilder(settings, device=dev)
     frames = [builder.stereo_pair(l, r, 0.1 * i)
               for i, (l, r) in enumerate(pairs)]
     torch.cuda.synchronize()
     launches = {"fast": fast_cuda.launches, "orb": orb_cuda.launches,
                 "stereo": stereo_cuda.launches}
+    strips_launches = stereo_cuda.strips_launches
 
     plain_builder = FrameBuilder(settings, device=dev, plain=True)
     plain_frames = [plain_builder.stereo_pair(l, r, 0.1 * i)
@@ -872,12 +965,15 @@ def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
         depth_errs.append(err)
         same_desc = float((ff.desc == pff.desc).all(1)[ff.valid].mean())
         same_depth = float((np.sign(ff.depth) == np.sign(pff.depth)).mean())
+        same_stereo = float(((ff.ur == pff.ur) & (ff.depth == pff.depth))
+                            .mean())
         print(f"[slice] frame {i}: {n_valid} valid, {int(has_d.sum())} depths, "
               f"median depth err {100 * err:.3f}%, vs plain path: xy/octave/"
               f"valid equal={np.array_equal(ff.xy, pff.xy)}/"
               f"{np.array_equal(ff.octave, pff.octave)}/"
               f"{np.array_equal(ff.valid, pff.valid)}, descriptors "
-              f"{100 * same_desc:.3f}%, matched set {100 * same_depth:.3f}%")
+              f"{100 * same_desc:.3f}%, matched set {100 * same_depth:.3f}%, "
+              f"u_right and depth equal on {100 * same_stereo:.3f}% of rows")
         check(ff.xy.shape == (n_rows, 2) and np.isfinite(ff.xy).all(),
               "xy shape or values")
         check(n_valid >= MIN_VALID, f"frame {i}: {n_valid} valid features")
@@ -887,10 +983,13 @@ def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
               and np.array_equal(ff.octave, pff.octave)
               and np.array_equal(ff.valid, pff.valid),
               f"frame {i}: kernel and plain paths differ in xy/octave/valid")
+        check(same_stereo >= STEREO_MIN_SHARE,
+              f"frame {i}: u_right/depth equal on only {same_stereo}")
 
     # ---- 4. launch counts --------------------------------------------------
     print(f"[counts] launches during the slice ({N_PAIRS} stereo pairs): "
-          f"{launches}")
+          f"{launches}; scores-only stereo launches {strips_launches}")
+    check(strips_launches == 0, "the slice launched the scores-only kernel")
     for name, n in launches.items():
         check(n == LAUNCHES_PER_PAIR[name] * N_PAIRS,
               f"kernel {name}: {n} launches for {N_PAIRS} pairs, expected "
@@ -918,6 +1017,17 @@ def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
     # each kernel on the left image: one launch over the 8 levels, the
     # same kernel as 8 one-level launches, and the plain version
     levels, blurred, xys, valids = per_image[0]
+    # the stereo refinement on pair 0's Hamming matches
+    lf0, rf0, xyl0, xyr0, bi0, bd0 = real[0]
+    cen0 = stereo_cuda.centres(xyl0, xyr0, bi0, H, W)
+    refine_args = (lf0, rf0, xyl0, xyr0, bi0, bd0, bf_t, lo_t, hi_t)
+
+    def unfused_step3():
+        yc, xl, xr = stereo_cuda.centres(xyl0, xyr0, bi0, H, W)
+        scores = stereo_cuda.sad_strips_cuda(lf0, rf0, yc, xl, xr)
+        return stereo_cuda.refine_from_scores(scores, xyl0[:, 0], xr, bd0,
+                                              bf_t, lo_t, hi_t)
+
     variants = {
         "fast": {
             "kernel": lambda: fast_cuda.detect_levels_cuda(levels, 20, 7,
@@ -937,9 +1047,10 @@ def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
             "plain": lambda: orb_cuda.describe_levels_plain(
                 levels, blurred, xys, valids, n_rows)},
         "stereo": {
-            "kernel": lambda: stereo_cuda.sad_strips_cuda(lf, rf, yc, xl, xr),
-            "plain": lambda: stereo_cuda.sad_strips_plain(lf, rf, yc, xl,
-                                                          xr)},
+            "kernel": lambda: stereo_cuda.refine_cuda(*refine_args),
+            "unfused": unfused_step3,
+            "scores": lambda: stereo_cuda.sad_strips_cuda(lf0, rf0, *cen0),
+            "plain": lambda: stereo_cuda.refine_plain(*refine_args)},
     }
     times = {}
     for name, fns in variants.items():
@@ -950,9 +1061,42 @@ def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
                           for k, v in gr.items()},
                        "graph_kernel_range": [min(gr["kernel"]),
                                               max(gr["kernel"])]}
+    # the fused launch at three N: its fixed cost against its cost a keypoint
+    sweep_fns = {n: (lambda n=n: stereo_cuda.refine_cuda(
+        lf0, rf0, xyl0[:n], xyr0, bi0[:n], bd0[:n], bf_t, lo_t, hi_t))
+        for n in (256, 1024, 2048) if n <= n_rows}
+    sweep_ev = alternate(sweep_fns, lambda fn: cuda_ms(torch, fn))
+    sweep_gr = alternate(sweep_fns, lambda fn: graph_ms(torch, fn))
+    sweep_bb = alternate(sweep_fns, lambda fn: back_to_back(
+        torch, fn, KERNEL_NAMES["stereo"]))
+    sweep = {n: {"ms": statistics.median(sweep_ev[n]),
+                 "graph_ms": statistics.median(sweep_gr[n]),
+                 "graph_ms_range": [min(sweep_gr[n]), max(sweep_gr[n])],
+                 "back_to_back_ms": statistics.median(
+                     b["graph_ms"] for b in sweep_bb[n]),
+                 "device_ms": statistics.median(
+                     b["device_ms"] for b in sweep_bb[n])}
+             for n in sweep_fns}
+    print(f"[times] stereo refinement by N (events / graph / {BACK_TO_BACK} "
+          f"back to back in a graph / device ms): " + "; ".join(
+              f"N={n} {v['ms']:.4f} / {v['graph_ms']:.4f} (rounds "
+              f"{v['graph_ms_range']}) / {v['back_to_back_ms']:.4f} / "
+              f"{v['device_ms']:.4f}" for n, v in sweep.items()))
+    times["stereo"]["n_sweep"] = sweep
+    # each kernel back to back in one graph, and its device duration
+    b2b = {("fast", "kernel", KERNEL_NAMES["fast"]),
+           ("orb", "kernel", KERNEL_NAMES["orb"]),
+           ("stereo", "kernel", KERNEL_NAMES["stereo"]),
+           ("stereo", "scores", "sad_strips_kernel")}
+    for name, variant, kname in sorted(b2b):
+        runs = [back_to_back(torch, variants[name][variant], kname)
+                for _ in range(3)]
+        times[name][f"back_to_back_{variant}"] = {
+            k: statistics.median(r[k] for r in runs)
+            for k in ("graph_ms", "device_ms")}
     bounds = {"fast": fast_bound(torch, levels, 7.0),
               "orb": describe_bound(torch, levels, xys, valids, n_rows),
-              "stereo": sad_bound(torch, W, yc, xl, xr)}
+              "stereo": refine_bound(torch, W, *cen0)}
     for name, (b_ms, b_by, work) in bounds.items():
         t = times[name]
         print(f"[times] {name}: kernel {t['kernel']:.4f} ms events, "
@@ -963,9 +1107,21 @@ def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
               + (f"with no pixel past the early exit {t['kernel_no_exit']:.4f}"
                  f" / {t['graph_kernel_no_exit']:.4f} ms; "
                  if "kernel_no_exit" in t else "")
+              + (f"unfused step 3 {t['unfused']:.4f} / "
+                 f"{t['graph_unfused']:.4f} ms; scores-only launch "
+                 f"{t['scores']:.4f} / {t['graph_scores']:.4f} ms; "
+                 if "unfused" in t else "")
               + f"plain {t['plain']:.3f} / {t['graph_plain']:.3f} ms; "
-              f"bound {1e3 * b_ms:.3f} us by {b_by} {work}; share of bound "
-              f"(bound / graph time) {100 * b_ms / t['graph_kernel']:.1f}%")
+              + "".join(f"{v} {BACK_TO_BACK} back to back in a graph "
+                        f"{t[f'back_to_back_{v}']['graph_ms']:.4f} ms a "
+                        f"launch, device "
+                        f"{t[f'back_to_back_{v}']['device_ms']:.4f} ms; "
+                        for v in ("kernel", "scores")
+                        if f"back_to_back_{v}" in t)
+              + f"bound {1e3 * b_ms:.3f} us by {b_by} {work}; share of bound "
+              f"(bound / graph time) {100 * b_ms / t['graph_kernel']:.1f}%, "
+              f"(bound / device time) "
+              f"{100 * b_ms / t['back_to_back_kernel']['device_ms']:.1f}%")
 
     return {"launches": launches, "times": times, "bounds": bounds,
             "errs": {"fast": fast_err, "orb": ang_err, "stereo": sad_err},
@@ -1032,10 +1188,12 @@ def main() -> int:
                 f"8 levels' budgets of one image ({front['n_kp']} keypoints "
                 f"in {n_rows} rows), one launch; max_abs_err is the angle "
                 "in degrees"),
-        "stereo": ("stereo_sad_strips", "orb_slam2_tpu_torch/csrc/stereo.cu",
+        "stereo": ("stereo_refine", "orb_slam2_tpu_torch/csrc/stereo.cu",
                    "orb_slam2_tpu/ops/stereo_pallas.py:125",
                    front["errs"]["stereo"],
-                   f"N={n_rows} keypoints on level 0"),
+                   f"N={n_rows} keypoints on level 0 (pair 0's Hamming "
+                   "matches): SAD scores, best shift, parabola and depth in "
+                   "one launch"),
     }
     kernels = []
     for key, (name, source, replaces, err, per) in meta.items():
@@ -1057,6 +1215,15 @@ def main() -> int:
             k["graph_ms_8_launches"] = t["graph_kernel_8"]
         if "kernel_no_exit" in t:
             k["graph_ms_no_early_exit"] = t["graph_kernel_no_exit"]
+        k["back_to_back_graph_ms"] = t["back_to_back_kernel"]["graph_ms"]
+        k["device_ms"] = t["back_to_back_kernel"]["device_ms"]
+        if "unfused" in t:
+            k["scores_only_back_to_back"] = t["back_to_back_scores"]
+            k["unfused_ms"] = t["unfused"]
+            k["graph_unfused_ms"] = t["graph_unfused"]
+            k["scores_only_ms"] = t["scores"]
+            k["graph_scores_only_ms"] = t["graph_scores"]
+            k["n_sweep"] = t["n_sweep"]
         if key == "orb":
             k["desc_identical_share"] = front["desc_share"]
         kernels.append(k)

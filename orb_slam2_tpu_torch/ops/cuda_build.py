@@ -44,8 +44,12 @@ _SIGNATURES = {
     # n_levels, ptrs (host void*[4n]), ints (host int[4n]), n_rows, angle,
     # desc, stream
     "orb_describe_levels": (_I, _P, _P, _I, _P, _P, _P),
-    # left, right, h, w, yc, xl, xr, n, out, stream
+    # left, right, h, w, yc, xl, xr, n, scores, stream
     "orb_sad_strips": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P),
+    # left, right, h, w, xy_l, xy_r, best_idx, best_dist, th_orb, bf,
+    # min_disp, max_disp, n, u_right, depth, sad, scores (or null), stream
+    "orb_stereo_refine": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                          _I, _P, _P, _P, _P, _P),
 }
 
 

@@ -334,8 +334,8 @@ def _sad_inputs(integer: bool, n=96, seed=3):
     ir = rng.uniform(0, 255, (h, w)).astype(np.float32)
     if integer:
         il, ir = np.rint(il), np.rint(ir)
-    lo = tstereo._W + tstereo._L
-    yc = rng.integers(tstereo._W, h - tstereo._W, n).astype(np.int32)
+    lo = stereo_cuda.W + stereo_cuda.L
+    yc = rng.integers(stereo_cuda.W, h - stereo_cuda.W, n).astype(np.int32)
     xl = rng.integers(lo, w - lo, n).astype(np.int32)
     xr = rng.integers(lo, w - lo, n).astype(np.int32)
     return il, ir, yc, xl, xr
@@ -348,7 +348,7 @@ def test_sad_search_matches_jax(integer):
     are added in another order."""
     args = _sad_inputs(integer)
     ref = np.asarray(jstereo._sad_search(*map(jnp.asarray, args)))
-    out = _np(tstereo._sad_search(*map(_t, args)))
+    out = _np(stereo_cuda.sad_strips_plain(*map(_t, args)))
     via_wrapper = _np(stereo_cuda.sad_strips(*map(_t, args)))
     np.testing.assert_array_equal(via_wrapper, out)
     if integer:

@@ -123,10 +123,14 @@ def _kernel_calls(device):
     xy = torch.full((4, 2), 32, dtype=torch.int32, device=device)
     valid = torch.ones(4, dtype=torch.bool, device=device)
     idx = torch.full((4,), 20, dtype=torch.int32, device=device)
+    xyf, best = xy.float(), idx.long()
+    scal = torch.zeros((), dtype=torch.float32, device=device)
     return {
         "fast": lambda f: f(img, 20, 7, 16),
         "orb": lambda f: f(img, img, xy, valid),
         "stereo": lambda f: f(img, img, idx, idx, idx),
+        "stereo_refine": lambda f: f(img, img, xyf, xyf, best, idx, scal,
+                                     scal, scal),
     }
 
 
@@ -135,6 +139,7 @@ _ENTRY = {
              fast_cuda.detect_with_fallback),
     "orb": (orb_cuda.describe_oriented_cuda, orb_cuda.describe_oriented),
     "stereo": (stereo_cuda.sad_strips_cuda, stereo_cuda.sad_strips),
+    "stereo_refine": (stereo_cuda.refine_cuda, stereo_cuda.refine),
 }
 
 
