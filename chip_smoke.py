@@ -64,7 +64,40 @@ there is no CUDA device or any phase fails.  Phases:
              (c) one local-BA problem gathered in (b), solved on the card
                  and on the CPU: cam_T within 1e-4, points within 1e-3 m,
                  outlier masks equal on >= 99% of edges; two card solves
-                 compared for determinism.
+                 compared for determinism;
+  8. pipeline the pipelined tracking chain and the async scheduler, at the
+             KITTI shape:
+             (a) the chained step (slam/track_step.py ChainRunner) replayed
+                 as a CUDA graph against the eager chained step on the same
+                 chain, mirror and candidates, for an anchor frame and the
+                 blind frame dispatched behind it before either is read:
+                 Tcw within 1e-5, point ids, inliers and vis_local equal;
+                 a profiled replay runs exactly 2 FAST, 2 describe and 1
+                 stereo refinement kernels; its node count beside the fast
+                 step's; a mirror at a new address is captured for again;
+             (b) phase 7b's 40 poses through System(pipelined) with the
+                 sync scheduler after System.precompile(), then the flush:
+                 no frame LOST, no reset, every trajectory entry within
+                 0.05 m / 0.5 deg of the truth, >= 3 keyframes; anchors,
+                 blind frames, the most frames in flight, drift-gate
+                 rejects and salvages, mirror flushes and rows, captures,
+                 the ms of a track_stereo call by kind of frame (no
+                 synchronisation around the call: a blind frame's call must
+                 not wait for the device) and from dispatch to applied pose;
+             (c) the same frames through System(scheduler="async"), once
+                 unpipelined and once pipelined, paced at 10 Hz: the mapper
+                 busy during tracked frames, quiescence within a bounded
+                 wait, the worker dead after shutdown(), the store's
+                 invariants, every trajectory entry within 0.15 m / 1.5
+                 deg (three times the sync bound: which frames become
+                 keyframes, and when their BA lands, depends on the two
+                 threads' timing, and runs of the same code read 0.025 to
+                 0.076 m); the caller's ms on
+                 keyframe frames against phase 7b's inline figure, and the
+                 fast-path ms with the mapper idle and busy;
+             (d) System.precompile()'s seconds per program, and the graph
+                 captures made during (b) and (c) after it, each attributed
+                 (none expected).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors and times.
@@ -147,6 +180,15 @@ N_SYSTEM = 40
 MIN_KEYFRAMES = 3
 BA_CAM_ATOL, BA_PTS_ATOL, BA_BAD_SHARE = 1e-4, 1e-3, 0.99
 PROFILED_KEYFRAME_PASS = 3     # the mapper's fourth pass (0-based)
+
+# the pipeline phase
+FRAME_PERIOD_S = 0.1           # KITTI's 10 Hz
+QUIESCE_MAX_S = 60.0
+# a blind pipelined frame's call: the host's prep and one graph launch.  A
+# call that waited for its own replay would take the replay's ~40 ms
+BLIND_CALL_MAX_MS = 30.0
+# under the async scheduler the threads' timing decides the keyframes
+ASYNC_MAX_POSE_ERR_M, ASYNC_MAX_POSE_ERR_DEG = 0.15, 1.5
 
 
 def check(cond: bool, what: str) -> None:
@@ -490,7 +532,8 @@ def track_phase(torch, np, dev, settings, scene, gpu) -> dict:
         "frontend_graph_ms": frontend_ms, "pose_lm_graph_ms": lm_ms,
         "max_pose_err_m": max(e[0] for e in errs),
         "max_pose_err_deg": max(e[1] for e in errs), "gpu": gpu}))
-    return {"launches": launches, "times": times}
+    return {"launches": launches, "times": times,
+            "replay_nodes": prof_graph["n_device"]}
 
 
 def golden_phase(np, dev) -> dict:
@@ -529,6 +572,21 @@ def golden_phase(np, dev) -> dict:
     return {"frames": len(ts), "max_dev_m": float(dev_m.max())}
 
 
+def system_frames(np, scene):
+    """(poses, stereo pairs) of the System phases, rendered once."""
+    if not hasattr(system_frames, "cache"):
+        from synthetic import circle_trajectory
+
+        poses = circle_trajectory(240, orbit_r=3.0,
+                                  total_angle=3 * np.pi)[:N_SYSTEM]
+        Trl = np.eye(4, dtype=np.float32)
+        Trl[0, 3] = -BF / FX
+        pairs = [(scene.render(T).astype(np.uint8),
+                  scene.render(Trl @ T).astype(np.uint8)) for T in poses]
+        system_frames.cache = (poses, pairs)
+    return system_frames.cache
+
+
 def system_phase(torch, np, dev, settings, scene, gpu) -> dict:
     """Phase 7b and 7c: N_SYSTEM KITTI-shaped frames through the System on
     the card, then one gathered local-BA problem on the card against the
@@ -538,15 +596,9 @@ def system_phase(torch, np, dev, settings, scene, gpu) -> dict:
     from orb_slam2_tpu_torch.slam.track_step import GraphStep
     from orb_slam2_tpu_torch.solvers import ba
     from orb_slam2_tpu_torch.system import System
-    from synthetic import circle_trajectory
     import test_torch_track_blocks as blocks_mod
 
-    poses = circle_trajectory(240, orbit_r=3.0,
-                              total_angle=3 * np.pi)[:N_SYSTEM]
-    Trl = np.eye(4, dtype=np.float32)
-    Trl[0, 3] = -BF / FX
-    pairs = [(scene.render(T).astype(np.uint8),
-              scene.render(Trl @ T).astype(np.uint8)) for T in poses]
+    poses, pairs = system_frames(np, scene)
     system = System(settings, Sensor.STEREO, device=dev)
     tracker, mapper = system.tracker, system.local_mapper
 
@@ -715,7 +767,381 @@ def system_phase(torch, np, dev, settings, scene, gpu) -> dict:
         "local_ba_card_deterministic": same_twice,
         "max_pose_err_m": max(e[0] for e in errs),
         "max_pose_err_deg": max(e[1] for e in errs), "gpu": gpu}))
-    return {"launches": launches}
+    return {"launches": launches, "keyframe_median_ms": med["keyframe"],
+            "fast_path_median_ms": med["fast"]}
+
+
+def trajectory_errors(np, system, poses) -> dict:
+    """{frame: (m, deg)} of the trajectory entries against the truth, read
+    as the trajectory savers read them (Tcr @ the reference keyframe)."""
+    import test_torch_track_blocks as blocks_mod
+
+    store = system.store
+    errs = {}
+    for e in system.tracker.trajectory:
+        check(not e.lost, f"trajectory entry at t={e.timestamp} is LOST")
+        if not store.kf_valid[e.ref_kf]:
+            continue
+        i = int(round(e.timestamp / FRAME_PERIOD_S))
+        errs[i] = blocks_mod.pose_error(
+            e.Tcr @ store.kf_pose[e.ref_kf],
+            poses[i] @ np.linalg.inv(poses[0]))
+    return errs
+
+
+def check_store_invariants(np, store) -> None:
+    """The async scheduler's store invariants (tests/test_system_e2e.py):
+    finite poses and points, bound ids in range, and every entry of the
+    observation engine mirrored in kf_obs."""
+    with store.lock:
+        kfs = store.valid_kf_ids()
+        check(bool(np.isfinite(store.kf_pose[kfs]).all()),
+              "a keyframe pose is not finite")
+        rows = store.kf_obs[kfs]
+        check(bool((rows[rows >= 0] < store.n_pt).all()),
+              "out-of-range point id bound")
+        pids = store.valid_pt_ids()
+        check(bool(np.isfinite(store.pt_pos[pids]).all()),
+              "a point is not finite")
+        idx, okfs, ofeats = store.obs.dump(pids)
+        check(bool((store.kf_obs[okfs, ofeats] == pids[idx]).all()),
+              "observation engine entries not mirrored in kf_obs")
+
+
+def med_ms(values):
+    return statistics.median(values) if values else None
+
+
+def fmt(v) -> str:
+    return "none" if v is None else f"{v:.2f}"
+
+
+def chain_step_check(torch, np, dev, settings, scene, fast_nodes) -> dict:
+    """Phase 8a: the chained step as a graph against the eager chained
+    step, an anchor frame and the blind frame behind it."""
+    from orb_slam2_tpu_torch import utils
+    from orb_slam2_tpu_torch.ops import fast_cuda, orb_cuda, stereo_cuda
+    from orb_slam2_tpu_torch.slam import track_step
+    from orb_slam2_tpu_torch.slam.frame import FrameBuilder
+    import test_torch_track_blocks as blocks_mod
+
+    poses, pairs = system_frames(np, scene)
+    f0 = FrameBuilder(settings, device=dev).stereo_pair(*pairs[0], 0.0).feats
+    pts = blocks_mod.stereo_init_map(
+        f0.xy, f0.depth, f0.valid, f0.octave, f0.desc, settings.fx,
+        settings.fy, settings.cx, settings.cy, settings.scale_factors())
+    n, n_pt = f0.n, len(pts["pos"])
+    cap = settings.device_map_cap
+    M = utils.StickyBuckets(local=settings.bucket_local)("local", n_pt)
+
+    def up(a):
+        a = np.ascontiguousarray(a)
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                else a).to(dev)
+
+    mir_f32 = torch.zeros((cap, 9), device=dev)
+    mir_f32[:n_pt] = up(np.concatenate(
+        [pts["pos"], pts["normal"], pts["min_dist"][:, None],
+         pts["max_dist"][:, None], np.ones((n_pt, 1), np.float32)], 1))
+    mir_desc = torch.zeros((cap, 8), dtype=torch.int32, device=dev)
+    mir_desc[:n_pt] = up(pts["desc"])
+    pid = np.full(n, -1, np.int32)
+    pid[pts["feat"]] = np.arange(n_pt)
+    anchor = track_step.ChainState(
+        xy=up(f0.xy), ur=up(f0.ur), octave=up(f0.octave.astype(np.int32)),
+        angle=up(f0.angle), desc=up(f0.desc), pid=up(pid),
+        T_cur=up(np.eye(4, dtype=np.float32)),
+        velocity=up((poses[1] @ np.linalg.inv(poses[0])).astype(np.float32)))
+    cand = np.full(M, -1, np.int32)
+    cand[:n_pt] = np.arange(n_pt)
+    scal = np.array([1.0, 0.0], np.float32)
+
+    eager = track_step.build_track_step_chained(settings, "stereo",
+                                                device=dev)
+    runner = track_step.ChainRunner(eager, dev, depth=3)
+    runner.set_chain(anchor)
+    fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
+    # both frames dispatched before either is read
+    t0 = time.perf_counter()
+    pend = [runner.dispatch(*pairs[k], mir_f32, mir_desc, cand, scal)
+            for k in (1, 2)]
+    t_dispatch = time.perf_counter() - t0
+    in_flight = runner.ring.held()
+    bufs = [p.wait() for p in pend]
+    launches = {"fast": fast_cuda.launches, "orb": orb_cuda.launches,
+                "stereo": stereo_cuda.launches}
+    runs = track_step.ChainRunner.WARMUP + 1
+    for name, c in launches.items():
+        check(c == LAUNCHES_PER_PAIR[name] * runs,
+              f"chained step: kernel {name} launched {c} times in {runs} "
+              f"runs of its body")
+    check(runner.captures == 1 and in_flight == 2 and
+          runner.ring.held() == 0, "chained runner: captures or ring slots")
+
+    chain, worst = anchor, 0.0
+    for k, buf in zip((1, 2), bufs):
+        out, chain = eager(up(pairs[k][0]), up(pairs[k][1]), chain, mir_f32,
+                           mir_desc, up(cand), up(scal))
+        e, _ = track_step.unpack_track_out(out, n, M)
+        g, _ = track_step.unpack_track_out(None, n, M, buf=buf)
+        d = float(np.abs(e.Tcw - g.Tcw).max())
+        worst = max(worst, d)
+        check(d <= REPLAY_TCW_ATOL,
+              f"chained frame {k}: replay and eager Tcw differ by {d}")
+        for key in ("assign", "inlier", "vis_local"):
+            check(np.array_equal(getattr(e, key), getattr(g, key)),
+                  f"chained frame {k}: replay and eager {key} differ")
+        dt, dr = blocks_mod.pose_error(
+            g.Tcw, poses[k] @ np.linalg.inv(poses[0]))
+        diag = buf[-track_step.N_DIAG:]
+        print(f"[pipeline] chained frame {k} "
+              f"({'anchor' if k == 1 else 'blind'}): {g.n_matches_mm} "
+              f"matches, {g.n_inliers} inliers, "
+              f"{int((g.assign >= 0).sum())} point ids, pose error "
+              f"{dt:.5f} m {dr:.4f} deg; diagnostics n_th={int(diag[0])} "
+              f"n_vis={int(diag[1])} widened={int(diag[2])} "
+              f"inl1={int(diag[3])} dt={diag[4]:.4f} m "
+              f"drot={diag[5]:.4f} deg")
+        check(g.n_inliers >= MIN_INLIERS and dt <= MAX_POSE_ERR_M
+              and dr <= MAX_POSE_ERR_DEG, f"chained frame {k}: pose")
+    # the replay left the eager run's chain in the runner's buffers
+    torch.cuda.synchronize()
+    check(torch.equal(runner.chain.pid, chain.pid)
+          and float((runner.chain.T_cur - chain.T_cur).abs().max())
+          <= REPLAY_TCW_ATOL, "the replayed chain differs from the eager one")
+
+    prof = profile_call(torch, lambda: runner.dispatch(
+        *pairs[3], mir_f32, mir_desc, cand, scal).wait())
+    for name, kname in KERNEL_NAMES.items():
+        check(prof["counts"][name] == LAUNCHES_PER_PAIR[name],
+              f"kernel {kname} ran {prof['counts'][name]} times in a "
+              f"chained replay")
+    replay_ms = []
+    for k in range(4, 14):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runner.dispatch(*pairs[k], mir_f32, mir_desc, cand, scal).wait()
+        replay_ms.append(1e3 * (time.perf_counter() - t))
+    # the mirror moves (as when it grows): the runner must capture again
+    # for the new address, say so, and still equal the eager step
+    torch.cuda.synchronize()
+    before = track_step.ChainState(*[t.clone() for t in runner.chain])
+    moved = (mir_f32.clone(), mir_desc.clone())
+    buf = runner.dispatch(*pairs[14], *moved, cand, scal).wait()
+    out, _ = eager(up(pairs[14][0]), up(pairs[14][1]), before, *moved,
+                   up(cand), up(scal))
+    e, _ = track_step.unpack_track_out(out, n, M)
+    g, _ = track_step.unpack_track_out(None, n, M, buf=buf)
+    check(runner.captures == 2
+          and runner.capture_log[-1] == (M, "mirror moved"),
+          f"no new capture for a moved mirror: {runner.capture_log}")
+    check(float(np.abs(e.Tcw - g.Tcw).max()) <= REPLAY_TCW_ATOL
+          and np.array_equal(e.assign, g.assign),
+          "the replay for a moved mirror differs from the eager step")
+    print(f"[pipeline] chained replay vs eager: max Tcw diff {worst:.3g}, "
+          f"point ids, inliers and vis_local equal; two dispatches returned "
+          f"in {1e3 * t_dispatch:.1f} ms (capture included) with "
+          f"{in_flight} frames in flight; kernels in one profiled replay "
+          f"{prof['counts']}; {prof['n_device']} device kernels and copies "
+          f"(the fast step's replay: {fast_nodes}); launch calls "
+          f"{prof['launches']}; device busy {prof['busy_ms']:.2f} ms; "
+          f"dispatch + wait median {med_ms(replay_ms):.2f} ms")
+    return {"launches": launches, "nodes": prof["n_device"],
+            "replay_ms": med_ms(replay_ms)}
+
+
+def pipelined_run(torch, np, dev, settings, scene, scheduler: str,
+                  pipelined: bool, paced: bool) -> dict:
+    """Phase 8b / 8c: the 40 frames through one System after its
+    precompile; returns its times and counts."""
+    import copy
+
+    from orb_slam2_tpu_torch.config import Sensor
+    from orb_slam2_tpu_torch.system import System
+
+    poses, pairs = system_frames(np, scene)
+    s = copy.copy(settings)
+    s.pipelined = pipelined
+    tag = f"{scheduler}/{'pipelined' if pipelined else 'fast'}"
+    system = System(s, Sensor.STEREO, scheduler=scheduler, device=dev)
+    tracker, mapper = system.tracker, system.local_mapper
+    pre = system.precompile()
+    fast_step = tracker._get_fast_step()
+    runner = tracker._get_chain_step()
+    captures0 = (fast_step.captures, runner.captures)
+
+    calls = []          # (kind, ms, mapper busy at the call's start)
+    overlap = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    t_next = t_start
+    for i, (l, r) in enumerate(pairs):
+        if paced:
+            while True:
+                left = t_next - time.perf_counter()
+                if left <= 0:
+                    break
+                system.poll()
+                time.sleep(min(left, 0.002))
+            t_next = max(t_next + FRAME_PERIOD_S, time.perf_counter())
+        n_kf, anchors = system.store.n_kf, tracker.pipe_stats["anchors"]
+        n_fast = (tracker.timers.counts["fast_step"]
+                  + tracker.timers.counts["pipelined_step"])
+        busy = not mapper.idle()
+        t = time.perf_counter()
+        system.track_stereo(l, r, FRAME_PERIOD_S * i)
+        ms = 1e3 * (time.perf_counter() - t)
+        if not mapper.idle():
+            overlap += 1
+        check(tracker.state.name == "OK" and tracker.resets == 0,
+              f"{tag} frame {i}: lost or reset")
+        stepped = (tracker.timers.counts["fast_step"]
+                   + tracker.timers.counts["pipelined_step"]) > n_fast
+        kind = ("keyframe" if system.store.n_kf > n_kf else
+                "modular" if not stepped else
+                "anchor" if tracker.pipe_stats["anchors"] > anchors else
+                "blind" if pipelined else "fast")
+        calls.append((kind, ms, busy))
+    system.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    while not mapper.idle():
+        check(time.perf_counter() - t0 < QUIESCE_MAX_S,
+              f"{tag}: the mapper never quiesced")
+        time.sleep(0.01)
+    quiesce_s = time.perf_counter() - t0
+    system.shutdown()
+    check(all(not w.is_alive() for w in system._workers),
+          f"{tag}: a worker outlived shutdown()")
+    check(len(system._workers) == (1 if scheduler == "async" else 0),
+          f"{tag}: {len(system._workers)} workers")
+    check_store_invariants(np, system.store)
+    check(tracker.state.name == "OK" and tracker.resets == 0,
+          f"{tag}: lost or reset by the end")
+
+    errs = trajectory_errors(np, system, poses)
+    check(len(errs) >= N_SYSTEM - 2, f"{tag}: only {len(errs)} entries")
+    worst = (max(e[0] for e in errs.values()),
+             max(e[1] for e in errs.values()))
+    max_m, max_deg = ((MAX_POSE_ERR_M, MAX_POSE_ERR_DEG)
+                      if scheduler == "sync" else
+                      (ASYNC_MAX_POSE_ERR_M, ASYNC_MAX_POSE_ERR_DEG))
+    check(worst[0] <= max_m and worst[1] <= max_deg,
+          f"{tag}: pose error {worst}")
+    n_kf = int(system.store.kf_valid.sum())
+    check(system.store.n_kf >= MIN_KEYFRAMES, f"{tag}: {n_kf} keyframes")
+    if scheduler == "async":
+        check(overlap > 0, f"{tag}: the mapper never ran beside a frame")
+
+    captures = (fast_step.captures - captures0[0],
+                runner.captures - captures0[1])
+    by_kind = {k: [ms for kk, ms, _ in calls if kk == k]
+               for k in ("blind", "anchor", "fast", "keyframe", "modular")}
+    steady = [(ms, busy) for kk, ms, busy in calls
+              if kk in ("blind", "fast", "anchor")]
+    idle_ms = med_ms([ms for ms, busy in steady if not busy])
+    busy_ms = med_ms([ms for ms, busy in steady if busy])
+    to_pose = tracker.timers.samples.get("pipe/dispatch_to_pose", [])
+    wait = tracker.timers.samples.get("pipe/wait", [])
+    out = {
+        "metric": "pipeline_ms_per_frame", "scheduler": scheduler,
+        "pipelined": pipelined, "paced_hz": 1 / FRAME_PERIOD_S if paced
+        else None, "frames": N_SYSTEM, "wall_s": wall,
+        "call_ms_median": {k: med_ms(v) for k, v in by_kind.items()},
+        "call_ms_max": {k: (max(v) if v else None)
+                        for k, v in by_kind.items()},
+        "frames_by_kind": {k: len(v) for k, v in by_kind.items()},
+        "steady_call_ms_mapper_idle": idle_ms,
+        "steady_call_ms_mapper_busy": busy_ms,
+        "steady_calls_mapper_busy": sum(b for _, b in steady),
+        "dispatch_to_pose_ms_median": med_ms([1e3 * x for x in to_pose]),
+        "device_wait_ms_median": med_ms([1e3 * x for x in wait]),
+        "frames_mapper_busy_after_call": overlap,
+        "quiesce_s": quiesce_s, "keyframes": n_kf,
+        "max_pose_err_m": worst[0], "max_pose_err_deg": worst[1],
+        "pipe_stats": dict(tracker.pipe_stats),
+        "captures_after_precompile": {"fast_step": captures[0],
+                                      "chain_step": captures[1]},
+        "chain_capture_log": runner.capture_log,
+        "precompile_s": pre,
+    }
+    if tracker._device_map is not None:
+        dm = tracker._device_map
+        out["mirror"] = {"flushes": dm.flushes, "rows": dm.rows_flushed,
+                         "moves": dm.moves, "cap": dm.cap}
+    print(f"[pipeline] {tag}{' paced 10 Hz' if paced else ''}: "
+          f"{N_SYSTEM} frames in {wall:.2f} s; call ms median by kind "
+          + ", ".join(f"{k} {fmt(med_ms(v))} (n={len(v)})"
+                      for k, v in by_kind.items() if v)
+          + f"; steady call ms with the mapper idle {fmt(idle_ms)} / busy "
+          f"{fmt(busy_ms)} ({out['steady_calls_mapper_busy']} calls busy); "
+          f"dispatch to applied pose {fmt(out['dispatch_to_pose_ms_median'])}"
+          f" ms; device wait in a drain "
+          f"{fmt(out['device_wait_ms_median'])} ms; mapper busy after "
+          f"{overlap} calls; quiesced in {quiesce_s:.2f} s; {n_kf} keyframes;"
+          f" max pose error {worst[0]:.4f} m {worst[1]:.4f} deg; "
+          f"{tracker.pipe_stats}; mirror {out.get('mirror')}; captures after "
+          f"precompile {out['captures_after_precompile']} "
+          f"(chained log {runner.capture_log})")
+    print("[pipeline] " + tag + " tracker stage timers:\n"
+          + tracker.timers.report())
+    # a capture after precompile is attributed to a candidate block that
+    # outgrew its pinned bucket or to a mirror that moved, or it is a fault
+    grew = tracker._buckets("local", 1) > s.bucket_local
+    moved = out.get("mirror", {}).get("moves", 0) > 0
+    for what, c in out["captures_after_precompile"].items():
+        check(c == 0 or grew or (what == "chain_step" and moved),
+              f"{tag}: {c} unattributed captures of {what} after precompile")
+        if c:
+            print(f"[pipeline] {tag}: {c} captures of {what} after "
+                  f"precompile: candidate bucket grew={grew}, mirror "
+                  f"moved={moved}")
+    return out
+
+
+def pipeline_phase(torch, np, dev, settings, scene, gpu, track,
+                   system) -> dict:
+    """Phase 8: the pipelined chain, the device map mirror, the async
+    scheduler and the warm-up, at the KITTI shape."""
+    from orb_slam2_tpu_torch.ops import fast_cuda, orb_cuda, stereo_cuda
+
+    step = chain_step_check(torch, np, dev, settings, scene,
+                            track["replay_nodes"])
+    fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
+    runs = {}
+    for name, (scheduler, pipelined, paced) in {
+            "b_sync_pipelined": ("sync", True, False),
+            "c_async_fast": ("async", False, True),
+            "c_async_pipelined": ("async", True, True)}.items():
+        runs[name] = pipelined_run(torch, np, dev, settings, scene,
+                                   scheduler, pipelined, paced)
+        runs[name]["gpu"] = gpu
+        print(json.dumps(runs[name]))
+    launches = {"fast": fast_cuda.launches, "orb": orb_cuda.launches,
+                "stereo": stereo_cuda.launches}
+    for name, c in launches.items():
+        check(c > 0, f"kernel {name} was not launched by the pipeline phase")
+
+    b = runs["b_sync_pipelined"]
+    blind = b["call_ms_median"]["blind"]
+    check(b["frames_by_kind"]["blind"] > 0 and b["pipe_stats"]["anchors"] > 0,
+          "the pipelined run had no blind frame or no anchor")
+    check(blind <= BLIND_CALL_MAX_MS,
+          f"a blind frame's call takes {blind:.1f} ms: it waits for the "
+          "device")
+    kf_inline = system["keyframe_median_ms"]
+    print(f"[pipeline] precompile seconds per program: "
+          f"{b['precompile_s']}")
+    print(f"[pipeline] a blind frame's call {blind:.2f} ms against the "
+          f"sync fast path's {fmt(system['fast_path_median_ms'])} ms and "
+          f"the chained replay's {step['replay_ms']:.2f} ms; keyframe "
+          f"frames' caller ms: inline (phase 7b) {fmt(kf_inline)}, async "
+          f"{fmt(runs['c_async_fast']['call_ms_median']['keyframe'])}, "
+          f"async pipelined "
+          f"{fmt(runs['c_async_pipelined']['call_ms_median']['keyframe'])}")
+    return {"launches": {k: step["launches"][k] + launches[k]
+                         for k in launches}, "runs": runs}
 
 
 def alternate(fns: dict, timer, rounds: int = 4) -> dict:
@@ -1179,6 +1605,10 @@ def main() -> int:
     # ---- 7. the stereo System: golden, KITTI-shaped run, one local BA ------
     golden_phase(np, dev)
     system = system_phase(torch, np, dev, settings, scene, gpu)
+
+    # ---- 8. the pipelined chain, the mirror, the async scheduler ----------
+    pipeline = pipeline_phase(torch, np, dev, settings, scene, gpu, track,
+                              system)
     meta = {
         "fast": ("fast_detect_with_fallback", "orb_slam2_tpu_torch/csrc/fast.cu",
                  "orb_slam2_tpu/ops/fast_pallas.py:137", front["errs"]["fast"],
@@ -1209,6 +1639,7 @@ def main() -> int:
              "launches_per_stereo_frame": launches[key] / N_PAIRS,
              "launches_track_step": track["launches"][key],
              "launches_system": system["launches"][key],
+             "launches_pipeline": pipeline["launches"][key],
              "bound_work": work, "per": per}
         if "kernel_8" in t:
             k["ms_8_launches"] = t["kernel_8"]

@@ -6,15 +6,15 @@ Each driver loads a sequence, runs SLAM per frame, prints the
 median/mean tracking time like the reference (stereo_kitti.cc:114-122),
 and saves trajectories.
 
-Port of orb_slam2_tpu/apps/run_slam.py: the stereo_kitti driver.  The
-other drivers and the --vocab / --pipelined / --grid-map / --ar /
---viewer options wait for ROADMAP items 5-8 and raise
+Port of orb_slam2_tpu/apps/run_slam.py: stereo_kitti, with --scheduler
+and --pipelined.  The other entries and the --vocab /
+--grid-map / --ar / --viewer options wait for ROADMAP items 6-8 and raise
 NotImplementedError naming theirs.
 
 Usage:
   python -m orb_slam2_tpu_torch.apps.run_slam stereo_kitti SETTINGS.yaml SEQ_DIR
 Options: --device cuda|cpu  --out PREFIX  --max-frames N  --localization
-         --save-map PATH
+         --save-map PATH  --scheduler sync|async  --pipelined
 """
 
 from __future__ import annotations
@@ -29,8 +29,7 @@ from orb_slam2_tpu_torch.system import System
 # what each unported driver and option waits for
 _LATER = {
     "mono_tum": 7, "mono_kitti": 7, "mono_euroc": 7, "stereo_euroc": 8,
-    "rgbd_tum": 8, "vocab": 6, "pipelined": 5, "grid_map": 8, "ar": 8,
-    "viewer": 8,
+    "rgbd_tum": 8, "vocab": 6, "grid_map": 8, "ar": 8, "viewer": 8,
 }
 
 
@@ -41,14 +40,17 @@ def _later(what: str):
 
 def _build_system(args, sensor: Sensor) -> System:
     settings = Settings.from_yaml(args.settings)
-    for opt in ("vocab", "pipelined", "viewer", "ar", "grid_map"):
+    for opt in ("vocab", "viewer", "ar", "grid_map"):
         if getattr(args, opt) not in (None, False):
             _later(opt)
+    if args.pipelined:
+        settings.pipelined = True
     return System(settings, sensor, scheduler=args.scheduler,
                   device=args.device)
 
 
 def _finish(sys_: System, args, times):
+    sys_.drain()       # the pipelined frames still in flight
     times = sorted(times)
     if times:
         print(f"median tracking time: {times[len(times) // 2]:.4f}")
@@ -79,11 +81,11 @@ def main(argv=None):
     ap.add_argument("--localization", action="store_true")
     ap.add_argument("--scheduler", choices=["sync", "async"], default=None,
                     help="sync = deterministic (default); async = the "
-                         "reference's thread topology (mapping + loop "
-                         "closing on their own threads, background GBA)")
+                         "reference's thread topology (mapping on a "
+                         "thread of its own)")
     ap.add_argument("--pipelined", action="store_true",
-                    help="deep-pipelined tracking: keep several frames "
-                         "in flight to hide the device round-trip")
+                    help="pipelined tracking: keep several frames in "
+                         "flight, so a call does not wait for the device")
     ap.add_argument("--grid-map", default=None)
     ap.add_argument("--save-map", default=None)
     ap.add_argument("--ar", default=None, metavar="OUT_DIR",

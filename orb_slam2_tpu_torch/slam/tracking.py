@@ -9,11 +9,13 @@ as fixed-shape device ops; this module owns only control flow and the
 map bookkeeping, which is exactly the split SURVEY.md §7 prescribes
 ("decisions on host, inner math on device").
 
-Port of orb_slam2_tpu/slam/tracking.py: the stereo and RGB-D synchronous
-paths.  The fused step comes from `track_step.build_track_step` (a
-`GraphStep` replayed as one CUDA graph a frame on a card, the eager step
-on the CPU).  Waiting for later ROADMAP items, each raising
-NotImplementedError: the pipelined paths (item 5), monocular
+Port of orb_slam2_tpu/slam/tracking.py: the stereo and RGB-D paths,
+synchronous and pipelined.  The fused step comes from
+`track_step.build_track_step` (a `GraphStep` replayed as one CUDA graph a
+frame on a card, the eager step on the CPU); the pipelined path drives
+`track_step.build_track_step_chained` through a `ChainRunner`, which on a
+card returns from a dispatch without waiting for the device.  Waiting for
+later ROADMAP items, each raising NotImplementedError: monocular
 initialization (item 7), and relocalization plus localization mode's
 visual-odometry branch (item 6; without a relocalizer `_relocalization`
 returns False, as the JAX package's does).
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import enum
 import os as _os
+import time
 from dataclasses import dataclass
 from typing import ClassVar, List, Optional
 
@@ -34,7 +37,8 @@ from orb_slam2_tpu_torch.config import Sensor, Settings
 from orb_slam2_tpu_torch.ops import matching
 from orb_slam2_tpu_torch.ops.frontend import padded_total
 from orb_slam2_tpu_torch.slam import track_step as ts
-from orb_slam2_tpu_torch.slam.frame import Frame, FrameBuilder
+from orb_slam2_tpu_torch.slam.device_map import DeviceMap
+from orb_slam2_tpu_torch.slam.frame import Frame, FrameBuilder, _as_uint8
 from orb_slam2_tpu_torch.slam.map_store import FrameFeatures, MapStore
 from orb_slam2_tpu_torch.solvers import pose_lm
 from orb_slam2_tpu_torch.utils import (
@@ -237,9 +241,6 @@ class Tracker:
             raise NotImplementedError(
                 "the keyframe database and relocalization wait for "
                 "ROADMAP item 6")
-        if getattr(settings, "pipelined", False):
-            raise NotImplementedError(
-                "pipelined tracking waits for ROADMAP item 5")
         self.device = torch_device(device)
         self.s = settings
         self.sensor = sensor
@@ -293,6 +294,38 @@ class Tracker:
         self._loc_cache = None
         self._local_window_epoch = 0
 
+        # frame pipelining: dispatch frame t+1 before pulling frame t.
+        # The chained step gathers point data from the device map mirror
+        # (slam/device_map.py) and is equivalent to the fast step when
+        # serialized.  Default OFF.
+        self.pipelined = bool(getattr(settings, "pipelined", False))
+        # how many dispatched-but-unpulled frames may be in flight
+        # (results drain opportunistically as they become ready)
+        self.pipeline_depth = int(getattr(settings, "pipeline_depth", 3))
+        # re-anchor the chain from host state at least every N frames
+        self.chain_max_age = int(getattr(settings, "chain_max_age", 4))
+        # drift-gate thresholds derived from the camera/feature regime
+        # (see GateParams.from_settings)
+        self.gate_params = GateParams.from_settings(settings,
+                                                    self.chain_max_age)
+        self._chain_step = None       # track_step.ChainRunner
+        self._chain = None            # device ChainState; None = re-anchor
+        self._pending = []            # FIFO of (PendingFrame, meta dict)
+        self._device_map = None
+        self._chain_age = 0
+        self._chain_dirty = 0
+        # the innovation gate's verdict on the frame being applied (set by
+        # _process_pulled, cleared by _fast_finish)
+        self._drift_soft = self._drift_reject = False
+        self._drift_salvaged = False
+        self._fallback_used = False
+        self._innov_px = 0.0
+        self._th_mm_gate = 7.0
+        self._anchor_zmed = 0.0
+        # what the pipelined path did, for observability
+        self.pipe_stats = dict(anchors=0, blind=0, max_in_flight=0,
+                               drift_soft=0, drift_reject=0, salvaged=0)
+
     def _up(self, a) -> torch.Tensor:
         """A host array as a tensor on the tracker's device (uint32
         descriptor words as their int32 bits)."""
@@ -318,6 +351,9 @@ class Tracker:
         self.bounds = np.asarray(self.builder.bounds, np.float32)
         self._bounds_dev = self._up(self.bounds)
         self._fast_step = None
+        self._drop_pending()
+        self._chain_step = None
+        self._chain = None
         self._loc_cache = None
 
     # ------------------------------------------------------------------
@@ -444,6 +480,10 @@ class Tracker:
         )
         with self.timers("fast/pull"):
             res, desc_np = ts.unpack_track_out(out, n_feat, M)
+        # the fast path re-anchors from host state every frame — blind-
+        # extrapolation drift cannot exist; clear any stale pipelined flags
+        self._drift_soft = self._drift_reject = False
+        self._drift_salvaged = False
 
         # build the Frame from the step outputs (no second extraction)
         ff = FrameFeatures(
@@ -490,11 +530,16 @@ class Tracker:
     def _apply_fast_result(self, frame, last, res, cand, last_pids,
                            bindings):
         store = self.store
-        # (the JAX package's pipelined innovation gate and its salvage of
-        # a rejected device pose join this method with the pipelined
-        # path, ROADMAP item 5; the synchronous fast path re-anchors from
-        # host state every frame)
-        ok = res.n_matches_mm >= 20
+        # innovation gate (pipelined only — _fast_finish clears the
+        # flags): a device solve whose correction to the blind prediction
+        # exceeds the matching window cannot be trusted, because the
+        # window itself biased the matches; discard it and re-track
+        # through the modular reference-KF path below.
+        drift_reject = self._drift_reject
+        ok = (res.n_matches_mm >= 20) and not drift_reject
+        if _DEBUG_TRACK and drift_reject:
+            print(f"[dbg] f{frame.frame_id} DRIFT-REJECT "
+                  f"innov={self._innov_px:.1f}px", flush=True)
         if _DEBUG_TRACK:
             nb = int((bindings >= 0).sum())
             print(f"[dbg] f{frame.frame_id} mm={res.n_matches_mm} "
@@ -520,15 +565,53 @@ class Tracker:
                 n_map = n_obs_matches
             self.n_inliers = n_map
             ok = n_map >= 30
-        fallback = not ok
+        self._fallback_used = not ok
         if not ok:
             # fall back to the modular path (reference-KF tracking)
+            saved = (None if frame.Tcw is None else frame.Tcw.copy(),
+                     frame.bindings.copy(), frame.outlier.copy())
             self._assign_frame_bow(frame)
             ok = self._track_reference_keyframe()
             if ok:
                 ok = self._track_local_map()
+            if (not ok and drift_reject and saved[0] is not None
+                    and self._innov_px < 4.0 * self._th_mm_gate):
+                # the innovation gate fired but the modular re-track also
+                # failed: the device solve — which still carried matches —
+                # is the best pose available.  Accept it conservatively
+                # (forced chain re-anchor via _fallback_used, no keyframe
+                # via _drift_salvaged) rather than declaring LOST: a
+                # spurious reset throws the whole map away.  Only within
+                # ~4 match windows though — beyond that the matches behind
+                # the solve were found around a prediction too wrong to
+                # trust (repetitive texture aliases into a consistent-but-
+                # wrong pose), and accepting would poison
+                # last_frame/velocity.  LOST -> relocalization is the
+                # honest recovery there.
+                frame.Tcw, frame.bindings, frame.outlier = saved
+                inl_ids = frame.bindings[(frame.bindings >= 0)
+                                         & ~frame.outlier]
+                self.n_inliers = int(np.sum(store.pt_n_obs[inl_ids] >= 1))
+                self._drift_salvaged = True
+                self.pipe_stats["salvaged"] += 1
+                ok = self.n_inliers >= 30
+                if ok:
+                    # the frame's bindings/inliers are accepted, so the
+                    # visible/found statistics must count them like the
+                    # normal path above — salvaged stretches would
+                    # otherwise bias found_ratio downward and push healthy
+                    # points toward the <0.25 culling threshold.
+                    vis_ids = cand[res.vis_local[: len(cand)]]
+                    store.pt_visible[vis_ids] += 1
+                    bound_now = frame.bindings[frame.bindings >= 0]
+                    store.pt_visible[np.unique(bound_now)] += 1
+                    store.pt_found[inl_ids] += 1
+                if _DEBUG_TRACK:
+                    print(f"[dbg] f{frame.frame_id} SALVAGE dev pose "
+                          f"n_map={self.n_inliers} -> "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
 
-        if _DEBUG_TRACK and fallback:
+        if _DEBUG_TRACK and self._fallback_used:
             print(f"[dbg] f{frame.frame_id} FALLBACK -> "
                   f"{'ok' if ok else 'FAIL'} inl={self.n_inliers}",
                   flush=True)
@@ -556,7 +639,13 @@ class Tracker:
                 for pid in self.temporal_points:
                     store.set_point_bad(pid)
                 self.temporal_points.clear()
-            if self._need_new_keyframe():
+            # a SALVAGED frame (gate fired AND the modular re-track
+            # failed) carries a pose good enough to keep but not good
+            # enough to freeze into the map as a keyframe.  Soft drift
+            # alone must NOT suppress keyframes: weak tracking raises
+            # innovation, and blocking the keyframe the ref policy wants
+            # starves the local map.
+            if self._need_new_keyframe() and not self._drift_salvaged:
                 # keyframe BoW is deferred to the mapping thread
                 # (LocalMapper.process_one, ref: KeyFrame::ComputeBoW in
                 # LocalMapping::ProcessNewKeyFrame) — the ~30 ms device
@@ -595,6 +684,349 @@ class Tracker:
         self.last_frame = frame
         return frame.Tcw if self.state == State.OK else None
 
+    # ------------------------------------------------------------------
+    # frame pipelining: dispatch t+1 before pulling t.  The caller's
+    # thread does the host's prep and one dispatch a frame; the results
+    # land when the device delivers them.
+    # ------------------------------------------------------------------
+    def _get_chain_step(self) -> ts.ChainRunner:
+        if self._chain_step is None:
+            self._chain_step = ts.ChainRunner(
+                ts.build_track_step_chained(self.s, self._step_mode(),
+                                            device=self.device),
+                self.device, depth=self.pipeline_depth)
+        return self._chain_step
+
+    def _get_device_map(self) -> DeviceMap:
+        if self._device_map is None or \
+                self._device_map.store is not self.store:
+            self._device_map = DeviceMap(
+                self.store, cap=int(getattr(self.s, "device_map_cap",
+                                            1 << 17)), device=self.device)
+            # seed: everything currently in the map is dirty
+            self._device_map.dirty.update(
+                int(p) for p in self.store.valid_pt_ids())
+        return self._device_map
+
+    def _bootstrap_chain(self) -> ts.ChainState:
+        """Build the device ChainState from the last processed frame."""
+        store = self.store
+        # refresh the last frame's pose from its (possibly BA-moved)
+        # reference keyframe and redirect fused/replaced point bindings,
+        # like the fast path does every frame (ref: CheckReplacedInLastFrame
+        # + UpdateLastFrame)
+        self._replace_updated_points(self.last_frame)
+        self._update_last_frame()
+        last = self.last_frame
+        bind = last.bindings.astype(np.int32)
+        pid = np.where(
+            (bind >= 0) & store.pt_valid[np.maximum(bind, 0)]
+            & ~last.outlier, bind, -1).astype(np.int32)
+        f = last.feats
+        return ts.ChainState(
+            xy=f.device("xy").float(), ur=f.device("ur").float(),
+            octave=f.device("octave").to(torch.int32),
+            angle=f.device("angle").float(), desc=f.device("desc"),
+            pid=self._up(pid),
+            T_cur=self._up(last.Tcw.astype(np.float32)),
+            velocity=self._up(self.velocity.astype(np.float32)),
+        )
+
+    def _drop_pending(self) -> None:
+        """Drop every frame in flight unread (their slots go back)."""
+        for pending, _ in self._pending:
+            pending.release()
+        self._pending = []
+
+    def _drain_one_pending(self) -> Optional[np.ndarray]:
+        """Pull + apply the OLDEST in-flight frame.  Returns its pose and
+        updates the chain-health flags; on tracking failure the whole
+        pipeline (chain + remaining in-flight frames, which extend the
+        failed state) is dropped."""
+        pending = self._pending.pop(0)
+        with self.timers("pipe/process"):
+            pose = self._process_pulled(*pending)
+        if self.state != State.OK or self.last_frame is None:
+            self._drop_pending()
+            self._chain = None
+            return pose
+        if self.last_kf_frame_id == self.last_frame.frame_id:
+            # KF/BA ran: serialize until tracking re-anchors to the
+            # updated map (in-flight dispatches cannot see its points)
+            self._chain_dirty = 2
+        elif (self.n_inliers < 60 or self._fallback_used
+              or self._drift_soft):
+            # weak tracking, the host DISCARDED the device pose via the
+            # modular fallback, or the innovation gate flagged blind-
+            # extrapolation drift: the chain in flight extends a pose
+            # the host does not trust — force a re-anchor before it can
+            # corrupt the map
+            self._chain_dirty = 2
+        return pose
+
+    def _chain_image(self, img, depth: bool = False):
+        """An image for the chain runner: the prefetched device tensor if
+        there is one, else the host array (the runner stages it)."""
+        dev = self.builder._take_prefetched(
+            img, torch.float32 if depth else torch.uint8)
+        if dev is not None:
+            return dev
+        if depth:
+            return np.ascontiguousarray(img.astype(np.float32, copy=False))
+        return np.ascontiguousarray(_as_uint8(img))
+
+    def _track_pipelined(self, img_l, img_r, timestamp):
+        store = self.store
+        dmap = self._get_device_map()
+        step = self._get_chain_step()
+
+        # The chain's poses still ride the map frame from dispatch time;
+        # point data comes fresh from the device mirror.  Re-anchor the
+        # chain from host state every `chain_max_age` frames and after
+        # keyframes/weak frames (chain_dirty); between anchors, frames
+        # are dispatched blind (device trust gate bounds drift) and up
+        # to `pipeline_depth` results stay in flight, draining whenever
+        # the device delivers them.
+        self._chain_age += 1
+        refresh = (self._chain is None
+                   or self._chain_age >= self.chain_max_age
+                   or self._chain_dirty > 0)
+        pose_pre = None
+        if refresh:
+            while self._pending:
+                pose_pre = self._drain_one_pending()
+                if self.state != State.OK or self.last_frame is None:
+                    return pose_pre
+            # drain mapping BEFORE re-anchoring so the fresh chain and
+            # candidate list see the newest triangulations/BA (exact
+            # fast-path parity on refresh frames).  ONLY when mapping is
+            # inline (sync scheduler): with a dedicated mapping thread,
+            # spin(block=False) can still win the race against the
+            # worker waking up and then runs the WHOLE keyframe pass on
+            # the tracking thread.  The reference's tracking thread never
+            # does LocalMapping work (src/System.cc:85-104).
+            if (self.local_mapper is not None
+                    and not getattr(self.local_mapper, "async_worker",
+                                    False)):
+                with self.timers("pipe/mapper_spin"):
+                    self.local_mapper.spin(block=False)
+            with store.lock, self.timers("pipe/anchor"):
+                self._update_local_map()
+                self._frames_since_map_refresh = 0
+                step.set_chain(self._bootstrap_chain())
+                self._chain = step.chain
+            self._chain_age = 0
+            self._chain_dirty = max(self._chain_dirty - 1, 0)
+            self.pipe_stats["anchors"] += 1
+            if _DEBUG_TRACK:
+                nc = int((self._chain.pid >= 0).sum())
+                print(f"[dbg] ANCHOR at last_frame="
+                      f"{self.last_frame.frame_id} carried={nc} "
+                      f"local={len(self.local_pts)} "
+                      f"dirty={self._chain_dirty}", flush=True)
+        else:
+            self.pipe_stats["blind"] += 1
+
+        with store.lock:
+            # candidate pid list only — the step gathers the data from
+            # the mirror and excludes chain-carried pids on device
+            geo_epoch = store.geo_epoch
+            lp = self.local_pts
+            cand = lp[store.pt_valid[lp]].astype(np.int32)
+            M = self._buckets("local", max(len(cand), 1))
+            cand_pids = np.full(M, -1, np.int32)
+            cand_pids[: len(cand)] = cand
+            # flush the mirror ONLY when the chain was just re-anchored:
+            # between refreshes the in-flight chain pose rides the
+            # pre-BA map frame, and scattering BA-moved points under it
+            # makes the blind frame solve against inconsistent geometry
+            # (pose vs points from different gauge) — the source of
+            # 0.3-1.5m pipelined pose jumps around keyframes.
+            if refresh:
+                with self.timers("pipe/mirror_flush"):
+                    dmap.flush()
+        th_local = 3.0 if self.sensor == Sensor.RGBD else 1.0
+        scal = np.array([th_local, 0.0], np.float32)
+
+        with self.timers("pipe/dispatch"):
+            img_l_d = self._chain_image(img_l)
+            if img_r is None:
+                img_r_d = img_l_d
+            else:
+                img_r_d = self._chain_image(
+                    img_r, depth=self.sensor == Sensor.RGBD)
+            pending = step.dispatch(img_l_d, img_r_d, dmap.f32, dmap.desc,
+                                    cand_pids, scal)
+        self._pending.append(
+            (pending, dict(timestamp=timestamp, M=M, cand=cand_pids,
+                           geo_epoch=geo_epoch,
+                           t_dispatch=time.perf_counter())))
+        self._chain = step.chain
+        self.pipe_stats["max_in_flight"] = max(
+            self.pipe_stats["max_in_flight"], len(self._pending))
+
+        # opportunistic drain: process whatever the device has already
+        # delivered; block only when the pipeline is over depth
+        pose = pose_pre
+        while self._pending and (
+                len(self._pending) > self.pipeline_depth
+                or self._pending[0][0].is_ready()):
+            pose = self._drain_one_pending()
+            if self.state != State.OK or self.last_frame is None:
+                return pose
+            if self._chain_dirty > 0:
+                break    # next call re-anchors; drain the rest there
+        # The freshly dispatched frames' poses are not on host yet.
+        # Return the motion-model PREDICTION for the current frame
+        # (velocity composed over the unprocessed lag) so callers get a
+        # pose aligned with THIS timestamp; the authoritative trajectory
+        # entries are written when each frame is pulled.
+        if (self.state == State.OK and self.last_frame is not None
+                and self.velocity is not None
+                and self.last_frame.Tcw is not None):
+            lag = max(len(self._pending), 1)
+            pred = np.linalg.matrix_power(self.velocity, lag)
+            return (pred @ self.last_frame.Tcw).astype(np.float32)
+        return pose
+
+    def _process_pulled(self, pending, meta):
+        """Pull + apply a previously dispatched pipelined step.  The step
+        reports per-feature POINT IDS directly — no slot bookkeeping."""
+        store = self.store
+        n_feat = padded_total(
+            self.s.n_features, self.s.n_levels, self.s.scale_factor)
+        with self.timers("pipe/wait"):
+            # the one place that may wait for the device; store.lock is
+            # not held here
+            buf = pending.wait()
+        with self.timers("pipe/unpack"):
+            res, desc_np = ts.unpack_track_out(None, n_feat, meta["M"],
+                                               buf=buf)
+        diag = buf[-ts.N_DIAG:]
+
+        # ---- innovation gate -------------------------------------------
+        # The chain step reports the correction its solve applied to the
+        # constant-velocity prediction.  Expressed in PIXELS at the scene
+        # median depth it is directly comparable to the matching window
+        # th_mm: corrections beyond ~half the window mean the blind
+        # extrapolation is drifting (window-biased matching can no longer
+        # be assumed unbiased), so re-anchor the chain from host state
+        # and don't let this frame spawn a keyframe; corrections beyond
+        # the window itself mean even the solve is suspect — reject the
+        # device pose and re-track through the modular fallback.
+        dt_m, drot_deg = float(diag[4]), float(diag[5])
+        zd = res.depth[res.valid & (res.depth > 0)]
+        if len(zd) >= 30:
+            zmed = float(np.median(zd))
+            self._anchor_zmed = zmed
+        else:
+            zmed = self._anchor_zmed
+        th_mm = 7.0 if self.sensor == Sensor.STEREO else 15.0
+        innov_px = innovation_px(self.s.fx, dt_m, drot_deg, zmed)
+        self._innov_px = innov_px
+        inl1, n_vis = float(diag[3]), float(diag[1])
+        self._th_mm_gate = th_mm
+        # did existing geometry move while this frame was in flight?
+        # (int read is atomic under the GIL; the apply below re-enters
+        # the lock anyway)
+        map_moved = store.geo_epoch != meta.get("geo_epoch",
+                                                store.geo_epoch)
+        self._drift_soft, self._drift_reject = drift_gate(
+            innov_px, th_mm, inl1, n_vis, drot_deg=drot_deg,
+            map_moved=map_moved, params=self.gate_params)
+        self._drift_salvaged = False
+
+        if _DEBUG_TRACK:
+            d = diag
+            print(f"[dbg]   chain-diag n_th={int(d[0])} vis={int(d[1])} "
+                  f"wide={int(d[2])} inl1={int(d[3])} dt={d[4]:.3f}m "
+                  f"drot={d[5]:.2f}deg innov={innov_px:.1f}px "
+                  f"map_moved={int(map_moved)}",
+                  flush=True)
+        last = self.last_frame
+        cand = meta["cand"]
+
+        ff = FrameFeatures(
+            xy=res.xy, xy_raw=res.xy, ur=res.ur, depth=res.depth,
+            octave=res.octave, angle=res.angle,
+            desc=desc_np, valid=res.valid,
+            node=np.full(n_feat, -1, np.int32),
+            word=np.full(n_feat, -1, np.int32),
+            # the runner's own copy of the descriptors
+            dev={"desc": pending.desc},
+            torch_device=str(self.device),
+        )
+        frame = Frame(
+            frame_id=self.builder._next_id, timestamp=meta["timestamp"],
+            feats=ff,
+        )
+        self.builder._next_id += 1
+        self.current = frame
+        frame.Tcw = res.Tcw
+        frame.ref_kf = self.ref_kf
+
+        # res.assign carries pids; validate against the live map and
+        # follow Replace() chains (vectorized)
+        pid = res.assign.astype(np.int64)
+        ok = (pid >= 0) & (pid < store.n_pt)
+        resolved = np.where(ok, pid, -1)
+        for _ in range(4):
+            rep = store.pt_replaced_by[np.maximum(resolved, 0)]
+            step_mask = (resolved >= 0) & (rep >= 0)
+            if not step_mask.any():
+                break
+            resolved = np.where(step_mask, rep, resolved)
+        valid = (resolved >= 0) & store.pt_valid[np.maximum(resolved, 0)]
+        bindings = np.where(ok & valid, resolved, -1)
+        frame.bindings = bindings
+        frame.outlier = (bindings >= 0) & ~res.inlier
+        last_pids = np.where(last.bindings >= 0, last.bindings, 0)
+
+        with store.lock, self.timers("pipe/apply"):
+            # re-check the epoch under the lock: if this drain blocked on
+            # a BA/fusion writeback that held the lock (and bumped
+            # geo_epoch) while we computed the gate above, the moved-map
+            # loosening must cover that window too — recompute the gate
+            # with map_moved set.
+            if not map_moved and store.geo_epoch != meta.get(
+                    "geo_epoch", store.geo_epoch):
+                self._drift_soft, self._drift_reject = drift_gate(
+                    innov_px, th_mm, inl1, n_vis, drot_deg=drot_deg,
+                    map_moved=True, params=self.gate_params)
+            self.pipe_stats["drift_soft"] += int(self._drift_soft)
+            self.pipe_stats["drift_reject"] += int(self._drift_reject)
+            pose = self._apply_fast_result(
+                frame, last, res, cand, last_pids, bindings)
+        if "t_dispatch" in meta:
+            self.timers.add("pipe/dispatch_to_pose",
+                            time.perf_counter() - meta["t_dispatch"])
+        return pose
+
+    def poll(self) -> int:
+        """Drain in-flight pipelined results the device has ALREADY
+        delivered, without blocking.  Call between frames (while the
+        driver paces to the camera period) so authoritative poses land
+        as soon as the device delivers them instead of at the next
+        track call.  Returns frames drained."""
+        n = 0
+        while self._pending and self._pending[0][0].is_ready():
+            self._drain_one_pending()
+            n += 1
+            if self.state != State.OK or self.last_frame is None:
+                break
+            if self._chain_dirty > 0:
+                break       # next track call re-anchors first
+        return n
+
+    def _flush_pipeline(self):
+        while self._pending:
+            pending = self._pending.pop(0)
+            self._process_pulled(*pending)
+            if self.state != State.OK or self.last_frame is None:
+                self._drop_pending()
+                break
+        self._chain = None
+
     def _assign_frame_bow(self, frame: Frame):
         if (self.builder.vocabulary is not None
                 and not (frame.feats.node >= 0).any()):
@@ -625,8 +1057,12 @@ class Tracker:
     # ------------------------------------------------------------------
     def grab_monocular(self, img: np.ndarray, timestamp: float) -> Optional[np.ndarray]:
         if self._can_fast():
+            if self.pipelined:
+                with self.timers("pipelined_step"):
+                    return self._track_pipelined(img, None, timestamp)
             with self.timers("fast_step"):
                 return self._track_fast(img, None, timestamp)
+        self._flush_pipeline()
         boost = self.state in (State.NO_IMAGES_YET, State.NOT_INITIALIZED)
         with self.timers("frame_build"):
             frame = self.builder.monocular(img, timestamp, init_boost=boost)
@@ -634,16 +1070,24 @@ class Tracker:
 
     def grab_stereo(self, img_l, img_r, timestamp: float) -> Optional[np.ndarray]:
         if self._can_fast():
+            if self.pipelined:
+                with self.timers("pipelined_step"):
+                    return self._track_pipelined(img_l, img_r, timestamp)
             with self.timers("fast_step"):
                 return self._track_fast(img_l, img_r, timestamp)
+        self._flush_pipeline()
         with self.timers("frame_build"):
             frame = self.builder.stereo_pair(img_l, img_r, timestamp)
         return self._track(frame)
 
     def grab_rgbd(self, img, depth, timestamp: float) -> Optional[np.ndarray]:
         if self._can_fast():
+            if self.pipelined:
+                with self.timers("pipelined_step"):
+                    return self._track_pipelined(img, depth, timestamp)
             with self.timers("fast_step"):
                 return self._track_fast(img, depth, timestamp)
+        self._flush_pipeline()
         with self.timers("frame_build"):
             frame = self.builder.rgbd(img, depth, timestamp)
         return self._track(frame)
@@ -1284,6 +1728,7 @@ class Tracker:
         self.log.info("system reset #%d: clearing map and all subsystems",
                       n_resets)
         store = self.store
+        self._drop_pending()
         new_store = MapStore(store.n_feat, device=self.device)
         # keep cross-component erase hooks (e.g. KeyFrameDatabase.erase)
         # wired to the live store

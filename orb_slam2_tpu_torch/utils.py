@@ -9,12 +9,23 @@ captures (one per shape), as they bound XLA recompiles there.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
 from typing import Dict
 
 import numpy as np
 import torch
+
+
+# A CUDA graph is captured in the global error mode: a cudaMalloc, a
+# synchronisation or a launch on the default stream from ANOTHER thread
+# fails the capture.  Every capture (slam/track_step.py) holds this lock,
+# and so does each pass of the mapping thread (LocalMapper.process_one),
+# the only other thread that uses the device: a capture waits for the pass
+# in flight, and the mapper for the capture.  Re-entrant, because the sync
+# scheduler runs the mapper on the tracking thread.
+DEVICE_CAPTURE_LOCK = threading.RLock()
 
 
 def torch_device(device) -> torch.device:
@@ -144,6 +155,12 @@ class StageTimers:
 
     def __call__(self, name: str) -> "StageTimers._Ctx":
         return self._Ctx(self, name)
+
+    def add(self, name: str, dt: float) -> None:
+        """One sample of a span that did not run inside a `with`."""
+        self.totals[name] += dt
+        self.counts[name] += 1
+        self.samples[name].append(dt)
 
     def report(self) -> str:
         lines = []

@@ -135,6 +135,17 @@ ORBextractor.minThFAST: 7
         assert all(len(r) == 8 for r in rows)   # TUM: ts tx ty tz qxyzw
         with pytest.raises(NotImplementedError, match="item 7"):
             run_slam.main(["mono_tum", str(yaml), str(seq)])
+        # pipelined with the async scheduler: run_slam drains the frames
+        # in flight before it saves, so every frame is in the trajectory
+        out2 = tmp_path / "pipelined"
+        run_slam.main([
+            "stereo_kitti", str(yaml), str(seq), "--out", str(out2),
+            "--device", "cpu", "--pipelined", "--scheduler", "async",
+        ])
+        rows2 = [ln.split() for ln in
+                 open(str(out2) + "_CameraTrajectory_TUM.txt") if ln.strip()]
+        assert len(rows2) == len(rows)
+        assert float(rows2[-1][0]) == pytest.approx(0.1 * (len(pairs) - 1))
 
 
 def test_golden_sequence_matches_jax_system(port_run):

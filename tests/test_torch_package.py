@@ -69,8 +69,8 @@ def test_slam_modules_leave_jax_out():
     rule below reads each of their files."""
     mods = ("native.obs_engine", "io.datasets", "io.trajectory",
             "apps.run_slam", "system", "slam.local_mapping",
-            "slam.tracking", "slam.kf_mirror", "solvers.ba",
-            "solvers.triangulation", "convert")
+            "slam.tracking", "slam.kf_mirror", "slam.device_map",
+            "precompile", "solvers.ba", "solvers.triangulation", "convert")
     out = _run("import importlib, sys\n"
                + "".join(f"importlib.import_module('orb_slam2_tpu_torch.{m}')\n"
                          for m in mods)
