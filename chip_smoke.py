@@ -97,18 +97,64 @@ there is no CUDA device or any phase fails.  Phases:
                  fast-path ms with the mapper idle and busy;
              (d) System.precompile()'s seconds per program, and the graph
                  captures made during (b) and (c) after it, each attributed
-                 (none expected).
+                 (none expected);
+  9. places  place recognition, relocalization and loop closing with a
+             vocabulary trained on the scene's own descriptors (30 rendered
+             views, k=10, L=4), at the KITTI shape:
+             (a) the solvers on the card against the port's own CPU run on
+                 the same seeded inputs at the pinned bucket shapes: the
+                 vocabulary descent (2048 descriptors, k=10 / L=3: node and
+                 word ids equal), horn_align (1e-5), solve_pnp_ransac (256
+                 rows, 128 x 6 samples, 30% outliers: the same success,
+                 inlier masks equal on >= 99% of rows, pose within 1e-3 m /
+                 0.05 deg of the truth), solve_sim3_ransac + refine_sim3
+                 (512 rows, scale fixed and free: R, t, s within 1e-4 of
+                 the CPU's, masks equal on >= 99% of rows), and
+                 pose_graph.optimize dense (K = 64, E = 512) and cg on a
+                 drifted ring (camera centres within 1e-3 m of the CPU's);
+                 each one's ms by CUDA events;
+             (b) relocalization through System: phase 7b's 40 frames, 5
+                 black pairs, then mapped poses again: LOST after the black
+                 frames, OK again within 3 frames, relocalizations >= 1,
+                 the first OK frame within 0.1 m of the truth; its ms;
+             (c) a loop closed through System (sync scheduler) on the 240
+                 frames of circle_trajectory(240, orbit_r=3, 3 pi), 1.5
+                 orbits, after System.precompile() with its reloc, loop and
+                 gba stages: loops_closed >= 1, loop_detected, a finished
+                 global BA, keyframe ATE <= 0.5 m, the store's invariants,
+                 no capture after precompile; the closing pass's ms by
+                 stage and the global BA's seconds; the ATE of the same
+                 frames with the loop closer disabled;
+             (d) the 300-keyframe drifted ring map of tests/test_scale.py
+                 through _correct_loop + _optimize_essential_graph (cg, 20
+                 x 1024 eager CG steps) on the card: finite poses, the loop
+                 edge, the tail within 1.0 m of the truth; its seconds;
+             (e) phase 8c's async pipelined 40 frames at 10 Hz once more
+                 with the vocabulary, three threads on the card: 8c's
+                 gates, two workers, shutdown() returns within its timeout.
 
-The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts, errors and times.
+Every phase's seconds and the whole script's are printed.  `--phases`
+(e.g. `--phases 9`) runs the build and only the named phases, for
+development: the kernels line is then left out.  The last line is
+{"ok": true, "device": {...}}; the line before it lists the kernels with
+their launch counts, errors and times.
 """
 
+import argparse
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+# torch.profiler leaves its CUPTI callbacks attached after a profiled call,
+# and every later launch in the process pays for them: with them attached
+# the launch of the ~21,700-node chained graph takes ~12 ms of host time,
+# without them ~1.4 ms, and every eager stage runs 1.5-2x slower.  Ask
+# Kineto to detach after each profile, so that only the profiled calls
+# themselves carry the profiler's cost.  (Set before torch is imported.)
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -189,6 +235,22 @@ QUIESCE_MAX_S = 60.0
 BLIND_CALL_MAX_MS = 30.0
 # under the async scheduler the threads' timing decides the keyframes
 ASYNC_MAX_POSE_ERR_M, ASYNC_MAX_POSE_ERR_DEG = 0.15, 1.5
+
+# the places phase
+VOC_VIEWS, VOC_K, VOC_L = 30, 10, 4     # bench.py's recipe
+HORN_ATOL = 1e-5
+PNP_MAX_ERR_M, PNP_MAX_ERR_DEG = 1e-3, 0.05
+SIM3_ATOL = 1e-4
+MASK_MIN_SHARE = 0.99
+PG_MAX_DEV_M = 1e-3
+N_BLACK = 5                    # bench.py's kidnap window
+RELOC_WITHIN_FRAMES = 3
+RELOC_MAX_ERR_M = 0.1
+N_CIRCUIT = 240                # 1.5 orbits, bench.py's circuit
+LOOP_MAX_ATE_M = 0.5           # bench.py's drift-corrected bound
+RING_KEYFRAMES = 300
+RING_MAX_TAIL_ERR_M = 1.0
+SHUTDOWN_MAX_S = 60.0
 
 
 def check(cond: bool, what: str) -> None:
@@ -951,9 +1013,10 @@ def chain_step_check(torch, np, dev, settings, scene, fast_nodes) -> dict:
 
 
 def pipelined_run(torch, np, dev, settings, scene, scheduler: str,
-                  pipelined: bool, paced: bool) -> dict:
-    """Phase 8b / 8c: the 40 frames through one System after its
-    precompile; returns its times and counts."""
+                  pipelined: bool, paced: bool, vocabulary=None) -> dict:
+    """Phase 8b / 8c / 9e: the 40 frames through one System after its
+    precompile; returns its times and counts.  With a vocabulary the loop
+    closer runs too (on a second worker under the async scheduler)."""
     import copy
 
     from orb_slam2_tpu_torch.config import Sensor
@@ -962,9 +1025,12 @@ def pipelined_run(torch, np, dev, settings, scene, scheduler: str,
     poses, pairs = system_frames(np, scene)
     s = copy.copy(settings)
     s.pipelined = pipelined
-    tag = f"{scheduler}/{'pipelined' if pipelined else 'fast'}"
-    system = System(s, Sensor.STEREO, scheduler=scheduler, device=dev)
+    tag = (f"{scheduler}/{'pipelined' if pipelined else 'fast'}"
+           f"{'/vocabulary' if vocabulary is not None else ''}")
+    system = System(s, Sensor.STEREO, vocabulary=vocabulary,
+                    scheduler=scheduler, device=dev)
     tracker, mapper = system.tracker, system.local_mapper
+    closer = system.loop_closer
     pre = system.precompile()
     fast_step = tracker._get_fast_step()
     runner = tracker._get_chain_step()
@@ -1006,15 +1072,19 @@ def pipelined_run(torch, np, dev, settings, scene, scheduler: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     t0 = time.perf_counter()
-    while not mapper.idle():
+    while not (mapper.idle() and (closer is None or closer.idle())):
         check(time.perf_counter() - t0 < QUIESCE_MAX_S,
-              f"{tag}: the mapper never quiesced")
+              f"{tag}: the workers never quiesced")
         time.sleep(0.01)
     quiesce_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     system.shutdown()
-    check(all(not w.is_alive() for w in system._workers),
-          f"{tag}: a worker outlived shutdown()")
-    check(len(system._workers) == (1 if scheduler == "async" else 0),
+    shutdown_s = time.perf_counter() - t0
+    check(shutdown_s < SHUTDOWN_MAX_S and
+          all(not w.is_alive() for w in system._workers),
+          f"{tag}: a worker outlived shutdown() ({shutdown_s:.1f} s)")
+    n_workers = (0 if scheduler == "sync" else 1 if closer is None else 2)
+    check(len(system._workers) == n_workers,
           f"{tag}: {len(system._workers)} workers")
     check_store_invariants(np, system.store)
     check(tracker.state.name == "OK" and tracker.resets == 0,
@@ -1058,7 +1128,10 @@ def pipelined_run(torch, np, dev, settings, scene, scheduler: str,
         "dispatch_to_pose_ms_median": med_ms([1e3 * x for x in to_pose]),
         "device_wait_ms_median": med_ms([1e3 * x for x in wait]),
         "frames_mapper_busy_after_call": overlap,
-        "quiesce_s": quiesce_s, "keyframes": n_kf,
+        "quiesce_s": quiesce_s, "shutdown_s": shutdown_s,
+        "workers": len(system._workers), "keyframes": n_kf,
+        "loop_closer_passes": (closer.timers.counts["loop/detect"]
+                               if closer is not None else None),
         "max_pose_err_m": worst[0], "max_pose_err_deg": worst[1],
         "pipe_stats": dict(tracker.pipe_stats),
         "captures_after_precompile": {"fast_step": captures[0],
@@ -1142,6 +1215,554 @@ def pipeline_phase(torch, np, dev, settings, scene, gpu, track,
           f"{fmt(runs['c_async_pipelined']['call_ms_median']['keyframe'])}")
     return {"launches": {k: step["launches"][k] + launches[k]
                          for k in launches}, "runs": runs}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: place recognition, relocalization, loop closing
+# ---------------------------------------------------------------------------
+
+def train_vocabulary(torch, np, dev, scene):
+    """bench.py's recipe: the descriptors of VOC_VIEWS rendered views
+    around the orbit, extracted on the card with the kernels, then a
+    k=10 / L=4 tree by hierarchical k-medians on the host."""
+    from orb_slam2_tpu_torch import convert
+    from orb_slam2_tpu_torch.ops import frontend
+    from orb_slam2_tpu_torch.places.vocabulary import Vocabulary
+    from synthetic import circle_trajectory
+
+    t0 = time.perf_counter()
+    descs = []
+    for T in circle_trajectory(VOC_VIEWS, orbit_r=3.0,
+                               total_angle=2 * np.pi):
+        img = torch.from_numpy(scene.render(T).astype(np.uint8)).to(dev)
+        d = convert.features_to_numpy(
+            frontend.extract(img, n_features=N_FEATURES))
+        descs.append(d["desc"][d["valid"]])
+    t1 = time.perf_counter()
+    voc = Vocabulary.train(np.concatenate(descs), k=VOC_K, L=VOC_L,
+                           levels_up=1)
+    print(f"[places] vocabulary: {sum(len(d) for d in descs)} descriptors "
+          f"of {VOC_VIEWS} views in {t1 - t0:.1f} s, trained k={VOC_K} "
+          f"L={VOC_L} ({len(voc.node_desc)} nodes, {voc.n_words} words) in "
+          f"{time.perf_counter() - t1:.1f} s on the host")
+    return voc
+
+
+def _world(rng, np, n):
+    return np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                     rng.uniform(4, 10, n)], -1).astype(np.float32)
+
+
+def _small_pose(rng, np, rot, trans):
+    """A 4x4 pose from a rotation vector ~ N(0, rot) and a translation ~
+    N(0, trans), by Rodrigues' formula in float64."""
+    w = rng.normal(0, rot, 3)
+    th = np.linalg.norm(w)
+    Kx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    R = np.eye(3) + (np.sin(th) / th) * Kx \
+        + ((1 - np.cos(th)) / th ** 2) * (Kx @ Kx)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = R
+    T[:3, 3] = rng.normal(0, trans, 3)
+    return T
+
+
+def _pixels(np, pc):
+    return np.stack([FX * pc[:, 0] / pc[:, 2] + CX,
+                     FY * pc[:, 1] / pc[:, 2] + CY], -1).astype(np.float32)
+
+
+def _ring_problem(np, K, n_edges, drift_yaw, drift_step):
+    """A drifted ring of K keyframes with exact relative measurements
+    (tests/test_ba.py's ring): the ring's K edges, then chords, padded
+    with masked edges to n_edges.  Returns the problem's numpy fields and
+    the true camera centres."""
+    th = 2 * np.pi * np.arange(K) / K
+    Cs = np.stack([6 * np.cos(th), 6 * np.sin(th), np.zeros(K)], -1)
+    c, s_ = np.cos(th), np.sin(th)
+    Rw = np.zeros((K, 3, 3))
+    Rw[:, 0, 0], Rw[:, 0, 1], Rw[:, 1, 0], Rw[:, 1, 1] = c, -s_, s_, c
+    Rw[:, 2, 2] = 1.0
+    R_true = Rw.transpose(0, 2, 1).astype(np.float32)
+    t_true = -np.einsum("kij,kj->ki", R_true, Cs).astype(np.float32)
+    R_est, t_est = R_true.copy(), t_true.copy()
+    accR, acct = np.eye(3), np.zeros(3)
+    cy, sy = np.cos(drift_yaw), np.sin(drift_yaw)
+    dR = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1.0]])
+    for k in range(K):
+        R_est[k] = R_true[k] @ accR.T
+        t_est[k] = t_true[k] - R_true[k] @ accR.T @ acct
+        accR = accR @ dR
+        acct = acct + np.asarray(drift_step)
+    pairs = [(k, (k + 1) % K) for k in range(K)]
+    pairs += [(k, (k + 5) % K) for k in range(0, K, 4)]
+    pairs = pairs[:n_edges]
+    E = len(pairs)
+    ei = np.array([p[0] for p in pairs] + [0] * (n_edges - E), np.int64)
+    ej = np.array([p[1] for p in pairs] + [0] * (n_edges - E), np.int64)
+    mR = np.tile(np.eye(3, dtype=np.float32), (n_edges, 1, 1))
+    mt = np.zeros((n_edges, 3), np.float32)
+    for e, (i, j) in enumerate(pairs):
+        mR[e] = R_true[j] @ R_true[i].T
+        mt[e] = t_true[j] - mR[e] @ t_true[i]
+    fields = dict(
+        R=R_est, t=t_est, s=np.ones(K, np.float32),
+        fixed=np.arange(K) == 0, vmask=np.ones(K, bool),
+        edge_i=ei, edge_j=ej, meas_R=mR, meas_t=mt,
+        meas_s=np.ones(n_edges, np.float32),
+        emask=np.arange(n_edges) < E)
+    return fields, Cs
+
+
+def place_solvers_check(torch, np, dev, gpu) -> dict:
+    """Phase 9a: each place-recognition solver on the card against the
+    port's own CPU run, same seeded inputs, pinned bucket shapes."""
+    import test_torch_track_blocks as blocks_mod
+    from orb_slam2_tpu_torch import convert
+    from orb_slam2_tpu_torch.places.vocabulary import Vocabulary
+    from orb_slam2_tpu_torch.solvers import (
+        epnp, horn, pose_graph, sim3_solver,
+    )
+
+    rng = np.random.default_rng(9)
+    cam = (FX, FY, CX, CY)
+    ms = {}
+
+    def both(fn, *arrays):
+        """fn on CPU tensors and on card tensors of the same arrays."""
+        cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        card = [t.to(dev) for t in cpu]
+        return fn(*cpu), fn(*card), card
+
+    def to_np(x):
+        return x.detach().cpu().numpy()
+
+    def once_ms(fn):
+        """One call by CUDA events (the call's result is kept): for the
+        stages of seconds, warmed up by the caller."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    # -- vocabulary descent: 2048 descriptors, a k=10 / L=3 tree
+    train = rng.integers(0, 2 ** 32, (6000, 8), dtype=np.uint64).astype(
+        np.uint32)
+    voc = Vocabulary.train(train, k=10, L=3, levels_up=1)
+    desc = rng.integers(0, 2 ** 32, (2048, 8), dtype=np.uint64).astype(
+        np.uint32)
+    valid = rng.random(2048) > 0.05
+    node_c, word_c = voc.assign_nodes(desc, valid)
+    d_dev = torch.from_numpy(desc.view(np.int32)).to(dev)
+    v_dev = torch.from_numpy(valid).to(dev)
+    node_g, word_g = voc.assign_nodes(d_dev, v_dev)
+    check(bool((node_c == node_g).all() and (word_c == word_g).all()),
+          "vocabulary descent: card and CPU ids differ")
+    check(len(voc._tables) == len({torch.device("cpu"), torch.device(dev)}),
+          "the node tables were uploaded per call")
+    ms["descend_2048_k10_L3"] = cuda_ms(
+        torch, lambda: voc.descend(d_dev, v_dev))
+
+    # -- Horn: 128 hypotheses of 6 weighted points
+    p1 = rng.normal(0, 2, (128, 6, 3)).astype(np.float32)
+    Rs = np.stack([_small_pose(rng, np, 0.5, 1.0) for _ in range(128)])
+    p2 = (np.einsum("bij,bnj->bni", Rs[:, :3, :3], p1)
+          + Rs[:, None, :3, 3]).astype(np.float32)
+    w = (rng.random((128, 6)) > 0.1).astype(np.float32)
+    cpu, card, args = both(lambda a, b, c: horn.horn_align(a, b, c, False),
+                           p1, p2, w)
+    err = max(float(np.abs(to_np(a) - to_np(b)).max())
+              for a, b in zip(cpu, card))
+    check(err <= HORN_ATOL, f"horn_align: card vs CPU {err}")
+    ms["horn_align_128x6"] = cuda_ms(
+        torch, lambda: horn.horn_align(*args, False))
+    horn_err = err
+
+    # -- EPnP RANSAC: 256 rows (200 live, 30% outliers), 128 x 6 samples
+    n, live = 256, 200
+    pts = _world(rng, np, n)
+    T_true = _small_pose(rng, np, 0.2, 0.5)
+    pc = pts @ T_true[:3, :3].T + T_true[:3, 3]
+    uv = _pixels(np, pc) + rng.normal(0, 0.05, (n, 2)).astype(np.float32)
+    n_out = int(0.3 * live)
+    uv[:n_out] = rng.uniform([0, 0], [W, H], (n_out, 2))
+    mask = np.arange(n) < live
+    pts[live:], uv[live:] = 0.0, 0.0
+    max_err = np.where(mask, 5.991, 0.0).astype(np.float32)
+    samples = rng.integers(0, live, (128, 6))
+
+    def pnp(*a):
+        return epnp.solve_pnp_ransac(*a, *cam)
+
+    cpu, card, args = both(pnp, pts, uv.astype(np.float32), max_err, mask,
+                           samples)
+    check(bool(cpu.success) and bool(card.success),
+          f"solve_pnp_ransac: success CPU {bool(cpu.success)} card "
+          f"{bool(card.success)}")
+    share = float((to_np(cpu.inliers) == to_np(card.inliers)).mean())
+    check(share >= MASK_MIN_SHARE, f"solve_pnp_ransac: masks equal on "
+          f"{share}")
+    pnp_err = blocks_mod.pose_error(to_np(card.Tcw), T_true)
+    check(pnp_err[0] <= PNP_MAX_ERR_M and pnp_err[1] <= PNP_MAX_ERR_DEG,
+          f"solve_pnp_ransac: pose error {pnp_err}")
+    check(not to_np(card.inliers)[live:].any(), "a padded row is an inlier")
+    ms["solve_pnp_ransac_256"] = cuda_ms(torch, lambda: pnp(*args), 3, 3)
+    pnp_inl = int(card.n_inliers)
+
+    # -- Sim3 RANSAC + refine: 512 rows (300 live, 60 wrong), 128 x 3
+    sim3_out = {}
+    for fix_scale, s12 in ((True, 1.0), (False, 1.15)):
+        n, live = 512, 300
+        pts2 = _world(rng, np, n)
+        T12 = _small_pose(rng, np, 0.1, 0.3)
+        pts1 = (s12 * (pts2 @ T12[:3, :3].T) + T12[:3, 3]).astype(
+            np.float32)
+        uv1 = _pixels(np, pts1) + rng.normal(0, 0.3, (n, 2)).astype(
+            np.float32)
+        uv2 = _pixels(np, pts2) + rng.normal(0, 0.3, (n, 2)).astype(
+            np.float32)
+        pts2c = pts2.copy()
+        pts2c[:60] += rng.uniform(1, 3, (60, 3)).astype(np.float32)
+        mask = np.arange(n) < live
+        e = np.full(n, 9.21, np.float32)
+        one = np.ones(n, np.float32)
+        samples = rng.integers(0, live, (128, 3))
+
+        def solve(p1_, p2_, u1, u2, e_, o, m, smp):
+            r = sim3_solver.solve_sim3_ransac(
+                p1_, p2_, u1, u2, e_, e_, m, smp, *cam,
+                fix_scale=fix_scale)
+            f = sim3_solver.refine_sim3(
+                p1_, p2_, u1, u2, o, o, m, r.R12, r.t12, r.s12, *cam,
+                fix_scale=fix_scale)
+            return r, f
+
+        (rc, fc), (rg, fg), args = both(solve, pts1, pts2c, uv1, uv2, e,
+                                        one, mask, samples)
+        check(bool(rc.success) and bool(rg.success),
+              f"solve_sim3_ransac fix_scale={fix_scale}: no success")
+        err = max(float(np.abs(to_np(a) - to_np(b)).max())
+                  for a, b in zip(list(rc[1:4]) + list(fc[:3]),
+                                  list(rg[1:4]) + list(fg[:3])))
+        check(err <= SIM3_ATOL, f"sim3 fix_scale={fix_scale}: card vs CPU "
+              f"{err}")
+        share = min(float((to_np(rc.inliers) == to_np(rg.inliers)).mean()),
+                    float((to_np(fc[3]) == to_np(fg[3])).mean()))
+        check(share >= MASK_MIN_SHARE,
+              f"sim3 fix_scale={fix_scale}: masks equal on {share}")
+        s_err = abs(float(fg[2]) - s12)
+        check(s_err <= (0.0 if fix_scale else 0.01),
+              f"sim3 fix_scale={fix_scale}: scale {float(fg[2])}")
+        tag = "fixed" if fix_scale else "free"
+        ms[f"solve_sim3_ransac_512_{tag}"] = cuda_ms(
+            torch, lambda: sim3_solver.solve_sim3_ransac(
+                *args[:4], args[4], args[4], args[6], args[7], *cam,
+                fix_scale=fix_scale), 3, 3)
+        _, ms[f"refine_sim3_512_{tag}"] = once_ms(
+            lambda: sim3_solver.refine_sim3(
+                *args[:4], args[5], args[5], args[6], rg.R12, rg.t12,
+                rg.s12, *cam, fix_scale=fix_scale))
+        sim3_out[tag] = {"card_vs_cpu": err, "inliers": int(fg[4]),
+                         "scale": float(fg[2])}
+
+    # -- pose graph: dense at the pinned (64, 512) and cg on a ring
+    def centers(R, t, s):
+        R, t, s = to_np(R), to_np(t), to_np(s)
+        return -np.einsum("kji,kj->ki", R, t) / s[:, None]
+
+    pg_out = {}
+    for mode, K, E in (("dense", 64, 512), ("cg", 64, 512)):
+        f, Cs = _ring_problem(np, K, E, 0.012, [0.02, 0.01, 0.0])
+        prob_c = convert.pose_graph_problem_from_numpy(**f)
+        prob_g = convert.pose_graph_problem_from_numpy(**f, device=dev)
+        out_c = pose_graph.optimize(prob_c, iters=20, mode=mode)
+        pose_graph.optimize(prob_g, iters=1, mode=mode)      # warm-up
+        out_g, ms[f"pose_graph_{mode}_K{K}_E{E}"] = once_ms(
+            lambda: pose_graph.optimize(prob_g, iters=20, mode=mode))
+        dev_m = float(np.linalg.norm(centers(*out_c) - centers(*out_g),
+                                     axis=1).max())
+        err_m = float(np.linalg.norm(centers(*out_g) - Cs, axis=1).max())
+        check(dev_m <= PG_MAX_DEV_M, f"pose graph {mode}: card vs CPU "
+              f"{dev_m} m")
+        check(err_m <= 5e-3, f"pose graph {mode}: {err_m} m from the ring")
+        pg_out[mode] = {"card_vs_cpu_m": dev_m, "err_m": err_m}
+
+    print(f"[places] solvers, card vs CPU: descent ids equal; horn "
+          f"{horn_err:.2g}; PnP {pnp_inl} inliers, pose error "
+          f"{pnp_err[0]:.2g} m {pnp_err[1]:.2g} deg; sim3 {sim3_out}; "
+          f"pose graph {pg_out}")
+    print("[places] solver ms by CUDA events: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    print(json.dumps({"metric": "place_solver_ms", "ms": ms,
+                      "sim3": sim3_out, "pose_graph": pg_out, "gpu": gpu}))
+    return ms
+
+
+def reloc_run(torch, np, dev, settings, scene, voc, gpu) -> dict:
+    """Phase 9b: lost, then relocalized, through System."""
+    from orb_slam2_tpu_torch.config import Sensor
+    from orb_slam2_tpu_torch.system import System
+    import test_torch_track_blocks as blocks_mod
+
+    poses, pairs = system_frames(np, scene)
+    system = System(settings, Sensor.STEREO, vocabulary=voc, device=dev)
+    tracker = system.tracker
+    system.precompile(stages=["reloc"])
+    for i, (l, r) in enumerate(pairs):
+        system.track_stereo(l, r, FRAME_PERIOD_S * i)
+    check(tracker.state.name == "OK" and tracker.resets == 0,
+          "reloc run: not OK after the tracked frames")
+    n_kf = int(system.store.kf_valid.sum())
+    check(n_kf > 5, f"reloc run: {n_kf} keyframes (a LOST camera with <= 5 "
+          "resets the map)")
+    check(len(system.kf_database.bow) >= 3,
+          "reloc run: the keyframe database is nearly empty")
+    black = np.zeros((H, W), np.uint8)
+    t = N_SYSTEM
+    for _ in range(N_BLACK):
+        system.track_stereo(black, black, FRAME_PERIOD_S * t)
+        t += 1
+    check(tracker.state.name == "LOST" and tracker.resets == 0,
+          f"reloc run: {tracker.state.name} after the black frames")
+    # mapped poses again, from 8 frames before the blackout
+    frame_ms, first_ok = [], None
+    for j, i in enumerate(range(N_SYSTEM - 8, N_SYSTEM)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T = system.track_stereo(*pairs[i], FRAME_PERIOD_S * t)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        t += 1
+        if first_ok is None and tracker.state.name == "OK":
+            first_ok = j
+            err = blocks_mod.pose_error(
+                T, poses[i] @ np.linalg.inv(poses[0]))
+    check(first_ok is not None and first_ok < RELOC_WITHIN_FRAMES,
+          f"reloc run: OK again at revisited frame {first_ok}")
+    check(tracker.relocalizations >= 1 and tracker.resets == 0,
+          "reloc run: no relocalization counted")
+    check(err[0] <= RELOC_MAX_ERR_M, f"reloc run: pose error {err[0]} m")
+    check(tracker.state.name == "OK", "reloc run: lost again")
+    reloc_ms = tracker.timers.samples["relocalize"]
+    out = {"metric": "relocalization", "keyframes": n_kf,
+           "relocalizations": tracker.relocalizations,
+           "first_ok_frame": first_ok,
+           "relocalizing_frame_ms": frame_ms[first_ok],
+           "relocalize_stage_ms": [1e3 * x for x in reloc_ms],
+           "lost_frame_ms_median": med_ms(frame_ms[:first_ok]),
+           "tracked_again_ms_median": med_ms(frame_ms[first_ok + 1:]),
+           "pose_err_m": err[0], "pose_err_deg": err[1], "gpu": gpu}
+    print(f"[places] relocalization: LOST after {N_BLACK} black pairs, OK "
+          f"again at revisited frame {first_ok} in "
+          f"{frame_ms[first_ok]:.1f} ms (the relocalize stage "
+          f"{1e3 * reloc_ms[-1]:.1f} ms; attempts "
+          f"{[round(1e3 * x, 1) for x in reloc_ms]}), pose error "
+          f"{err[0]:.4f} m {err[1]:.3f} deg; frames after it "
+          f"{fmt(out['tracked_again_ms_median'])} ms")
+    print(json.dumps(out))
+    return out
+
+
+def circuit_frames(np, scene):
+    """(poses, stereo pairs) of bench.py's circuit: 240 frames, 1.5
+    orbits; its first 40 are phase 7b's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from synthetic import circle_trajectory
+
+    poses = circle_trajectory(N_CIRCUIT, orbit_r=3.0, total_angle=3 * np.pi)
+    _, head = system_frames(np, scene)
+    Trl = np.eye(4, dtype=np.float32)
+    Trl[0, 3] = -BF / FX
+
+    def pair(T):
+        return (scene.render(T).astype(np.uint8),
+                scene.render(Trl @ T).astype(np.uint8))
+
+    # the renderer is numpy on the host: a few threads at once
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        pairs = list(head) + list(pool.map(pair, poses[N_SYSTEM:]))
+    return poses, pairs
+
+
+def keyframe_ate(np, store, poses) -> float:
+    """RMSE of the keyframe centres against the rendered trajectory
+    (bench.py's kf_ate)."""
+    T0 = poses[0]
+    errs = []
+    for k in store.valid_kf_ids():
+        i = int(round(store.kf_timestamp[int(k)] / FRAME_PERIOD_S))
+        Tg = poses[i] @ np.linalg.inv(T0)
+        Te = store.kf_pose[int(k)]
+        errs.append(np.linalg.norm(-Te[:3, :3].T @ Te[:3, 3]
+                                   + Tg[:3, :3].T @ Tg[:3, 3]))
+    return float(np.sqrt(np.mean(np.square(errs))))
+
+
+def loop_run(torch, np, dev, settings, scene, voc, circuit, gpu,
+             with_loop: bool) -> dict:
+    """Phase 9c: bench.py's circuit through System with the sync
+    scheduler; with_loop=False disables the loop closer's queue, for the
+    drift the closure has to correct."""
+    from orb_slam2_tpu_torch.config import Sensor
+    from orb_slam2_tpu_torch.system import System
+
+    poses, pairs = circuit
+    system = System(settings, Sensor.STEREO, vocabulary=voc, device=dev)
+    tracker, closer = system.tracker, system.loop_closer
+    if not with_loop:
+        closer.insert_keyframe = lambda kf: None
+    pre = system.precompile()
+    check({"reloc/solve_pnp_ransac", "loop/pose_graph",
+           "loop/sim3_solve+refine", "gba/global_ba"} <= set(pre),
+          f"precompile ran {sorted(pre)}")
+    captures0 = tracker._get_fast_step().captures
+    frame_ms, closed_at, closing = [], None, {}
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for i, (l, r) in enumerate(pairs):
+        t0 = time.perf_counter()
+        system.track_stereo(l, r, FRAME_PERIOD_S * i)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        check(tracker.state.name == "OK" and tracker.resets == 0,
+              f"circuit frame {i}: {tracker.state.name}")
+        if closed_at is None and closer.loops_closed:
+            closed_at = i
+            closing = {k: round(1e3 * v[-1], 2)
+                       for k, v in closer.timers.samples.items()}
+    wall = time.perf_counter() - t_start
+    system.shutdown()
+    store = system.store
+    check_store_invariants(np, store)
+    ate = keyframe_ate(np, store, poses)
+    n_kf = int(store.kf_valid.sum())
+    captures = tracker._get_fast_step().captures - captures0
+    grew = tracker._buckets("local", 1) > settings.bucket_local
+    check(captures == 0 or grew,
+          f"circuit: {captures} unattributed captures after precompile")
+    out = {"metric": "loop_circuit", "with_loop": with_loop,
+           "frames": N_CIRCUIT, "wall_s": wall, "keyframes": n_kf,
+           "kf_ate_m": ate, "frame_ms_median": med_ms(frame_ms),
+           "frame_ms_max": max(frame_ms),
+           "captures_after_precompile": captures,
+           "precompile_s": pre, "gpu": gpu}
+    if not with_loop:
+        print(f"[places] circuit without loop closing: {n_kf} keyframes, "
+              f"keyframe ATE {ate:.4f} m, {wall:.1f} s")
+        print(json.dumps(out))
+        return out
+
+    gba = closer.gba
+    check(closer.loops_closed >= 1 and closer.loop_detected,
+          f"circuit: {closer.loops_closed} loops closed "
+          f"({closer.timers.counts['loop/detect']} detections run, "
+          f"{closer.timers.counts['loop/sim3_ransac']} Sim3 attempts)")
+    check(gba is not None and gba.runs_finished >= 1,
+          "circuit: no global BA finished")
+    check(ate <= LOOP_MAX_ATE_M, f"circuit: keyframe ATE {ate} m")
+    check(any(store.kf_loop_edges.values()), "circuit: no loop edge stored")
+    detect = closer.timers.samples["loop/detect"]
+    out.update({
+        "loops_closed": closer.loops_closed, "closed_at_frame": closed_at,
+        "closing_frame_ms": frame_ms[closed_at],
+        "gba_runs_finished": gba.runs_finished,
+        "gba_runs_aborted": gba.runs_aborted,
+        "gba_launch_s": closer.timers.samples["loop/gba_launch"],
+        "detect_ms_median": med_ms([1e3 * x for x in detect]),
+        "closing_pass_ms": closing,
+        "sim3_attempts": closer.timers.counts["loop/sim3_ransac"]})
+    print(f"[places] circuit: loop closed at frame {closed_at} "
+          f"({closer.loops_closed} closed, "
+          f"{closer.timers.counts['loop/sim3_ransac']} Sim3 attempts), that "
+          f"frame {frame_ms[closed_at]:.0f} ms (its pass by stage, ms: "
+          f"{closing}); {n_kf} keyframes, keyframe "
+          f"ATE {ate:.4f} m; global BA {gba.runs_finished} finished / "
+          f"{gba.runs_aborted} aborted; captures after precompile "
+          f"{captures}; {N_CIRCUIT} frames in {wall:.1f} s")
+    print("[places] loop closer stage timers:\n" + closer.timers.report())
+    print(f"[places] precompile seconds per program: {pre}")
+    print(json.dumps(out))
+    return out
+
+
+def ring_run(torch, np, dev, settings, gpu) -> dict:
+    """Phase 9d: the 300-keyframe ring map's loop correction on the card."""
+    from orb_slam2_tpu_torch.config import Sensor
+    from orb_slam2_tpu_torch.slam.loop_closing import LoopCloser
+    from orb_slam2_tpu_torch.slam.map_store import FrameFeatures, MapStore
+    from test_torch_ring_map import build_ring_map, correct_ring_loop
+
+    store, true_poses = build_ring_map(
+        MapStore, FrameFeatures, K=RING_KEYFRAMES, pts_per_kf=30, span=5,
+        n_feat=600, drift_per_kf=0.004, device=dev)
+    closer = LoopCloser(settings, Sensor.STEREO, store, kf_database=None,
+                        local_mapper=None, device=dev)
+    out = correct_ring_loop(closer, store, true_poses)
+    torch.cuda.synchronize()
+    check(out["poses_finite"] and out["points_finite"],
+          "ring map: a pose or a point is not finite")
+    check(out["loop_edge"], "ring map: no loop edge recorded")
+    check(out["moved"] > 0, "ring map: the correction moved no point")
+    check(out["tail_err"] < RING_MAX_TAIL_ERR_M,
+          f"ring map: tail error {out['tail_err']} m")
+    check(out["points_kept"] > 0.9, "ring map: points deleted")
+    t = closer.timers
+    out.update({"metric": "ring_map_loop_correction",
+                "keyframes": RING_KEYFRAMES,
+                "essential_graph_s": t.totals["loop/essential_graph"],
+                "search_and_fuse_s": t.totals["loop/search_and_fuse"],
+                "gpu": gpu})
+    print(f"[places] ring map, {RING_KEYFRAMES} keyframes: _correct_loop "
+          f"{out['seconds']:.2f} s (essential graph, cg "
+          f"{out['essential_graph_s']:.2f} s; search and fuse "
+          f"{out['search_and_fuse_s']:.3f} s), tail error "
+          f"{out['tail_err']:.2g} m")
+    print(json.dumps(out))
+    return out
+
+
+def places_phase(torch, np, dev, settings, scene, gpu) -> dict:
+    """Phase 9: place recognition, relocalization and loop closing."""
+    from orb_slam2_tpu_torch.ops import fast_cuda, orb_cuda, stereo_cuda
+
+    spans = {}
+
+    def timed(name, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spans[name] = time.perf_counter() - t0
+        return out
+
+    timed("9a solvers", place_solvers_check, torch, np, dev, gpu)
+    voc = timed("vocabulary", train_vocabulary, torch, np, dev, scene)
+    fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
+    reloc = timed("9b relocalization", reloc_run, torch, np, dev, settings,
+                  scene, voc, gpu)
+    circuit = timed("circuit frames", circuit_frames, np, scene)
+    loop = timed("9c loop", loop_run, torch, np, dev, settings, scene, voc,
+                 circuit, gpu, True)
+    launches = {"fast": fast_cuda.launches, "orb": orb_cuda.launches,
+                "stereo": stereo_cuda.launches}
+    for name, c in launches.items():
+        check(c > 0, f"kernel {name} was not launched by the places phase")
+    noloop = timed("9c without loop closing", loop_run, torch, np, dev,
+                   settings, scene, voc, circuit, gpu, False)
+    print(f"[places] keyframe ATE with the loop closed {loop['kf_ate_m']:.4f}"
+          f" m, without loop closing {noloop['kf_ate_m']:.4f} m")
+    ring = timed("9d ring map", ring_run, torch, np, dev, settings, gpu)
+    run = timed("9e async", pipelined_run, torch, np, dev, settings, scene,
+                "async", True, True, vocabulary=voc)
+    run["gpu"] = gpu
+    print(json.dumps(run))
+    print("[places] seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in spans.items()))
+    return {"launches": launches, "reloc": reloc, "loop": loop,
+            "ring": ring, "async": run}
 
 
 def alternate(fns: dict, timer, rounds: int = 4) -> dict:
@@ -1555,9 +2176,25 @@ def frontend_phases(torch, np, dev, settings, scene, poses, pairs,
             "n_kp": sum(budgets)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="", help="comma-separated subset of "
+                    "front,6,7,8,9 for development (default: all)")
+    only = {p for p in ap.parse_args(argv).phases.split(",") if p}
+    t_script = time.perf_counter()
+    spans = {}
+
+    def phase(name, fn, *a, **k):
+        """Run one phase, keep its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spans[name] = time.perf_counter() - t0
+        print(f"[phase] {name}: {spans[name]:.1f} s")
+        return out
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1577,7 +2214,8 @@ def main() -> int:
     t0 = time.perf_counter()
     so = cuda_build.build()
     cuda_build.library()
-    print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
+    spans["1 build"] = time.perf_counter() - t0
+    print(f"[build] {so.name} in {spans['1 build']:.1f} s")
     for ln in so.with_suffix(".log").read_text().splitlines():
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print(f"[build] {ln.strip()}")
@@ -1592,23 +2230,57 @@ def main() -> int:
     Trl[0, 3] = -BF / FX
     pairs = [(scene.render(T), scene.render(Trl @ T)) for T in poses]
 
+    if only:
+        # development: the named phases alone, no kernels line
+        stubs = ({"replay_nodes": -1},
+                 {"keyframe_median_ms": None, "fast_path_median_ms": None})
+        if "front" in only:
+            phase("2-5 frontend", frontend_phases, torch, np, dev, settings,
+                  scene, poses, pairs, gpu)
+        track = (phase("6 track", track_phase, torch, np, dev, settings,
+                       scene, gpu) if "6" in only else stubs[0])
+        system = stubs[1]
+        if "7" in only:
+            phase("7a golden", golden_phase, np, dev)
+            system = phase("7bc system", system_phase, torch, np, dev,
+                           settings, scene, gpu)
+        if "8" in only:
+            phase("8 pipeline", pipeline_phase, torch, np, dev, settings,
+                  scene, gpu, track, system)
+        if "9" in only:
+            phase("9 places", places_phase, torch, np, dev, settings, scene,
+                  gpu)
+        print(f"[phase] seconds: {spans}; whole script "
+              f"{time.perf_counter() - t_script:.1f} s")
+        print(gpu)
+        print(json.dumps({"ok": True, "partial": sorted(only), "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     # ---- 2-5. the kernels, the slice, the counts, the times -------------
-    front = frontend_phases(torch, np, dev, settings, scene, poses, pairs,
-                            gpu)
+    front = phase("2-5 frontend", frontend_phases, torch, np, dev, settings,
+                  scene, poses, pairs, gpu)
     launches, times, bounds = (front["launches"], front["times"],
                                front["bounds"])
     n_rows = front["n_rows"]
 
     # ---- 6. the fused tracking step, one CUDA graph a frame --------------
-    track = track_phase(torch, np, dev, settings, scene, gpu)
+    track = phase("6 track", track_phase, torch, np, dev, settings, scene,
+                  gpu)
 
     # ---- 7. the stereo System: golden, KITTI-shaped run, one local BA ------
-    golden_phase(np, dev)
-    system = system_phase(torch, np, dev, settings, scene, gpu)
+    phase("7a golden", golden_phase, np, dev)
+    system = phase("7bc system", system_phase, torch, np, dev, settings,
+                   scene, gpu)
 
     # ---- 8. the pipelined chain, the mirror, the async scheduler ----------
-    pipeline = pipeline_phase(torch, np, dev, settings, scene, gpu, track,
-                              system)
+    pipeline = phase("8 pipeline", pipeline_phase, torch, np, dev, settings,
+                     scene, gpu, track, system)
+
+    # ---- 9. place recognition, relocalization, loop closing ---------------
+    places = phase("9 places", places_phase, torch, np, dev, settings,
+                   scene, gpu)
     meta = {
         "fast": ("fast_detect_with_fallback", "orb_slam2_tpu_torch/csrc/fast.cu",
                  "orb_slam2_tpu/ops/fast_pallas.py:137", front["errs"]["fast"],
@@ -1640,6 +2312,7 @@ def main() -> int:
              "launches_track_step": track["launches"][key],
              "launches_system": system["launches"][key],
              "launches_pipeline": pipeline["launches"][key],
+             "launches_places": places["launches"][key],
              "bound_work": work, "per": per}
         if "kernel_8" in t:
             k["ms_8_launches"] = t["kernel_8"]
@@ -1666,6 +2339,8 @@ def main() -> int:
                           "bound_ms": k["bound_ms"],
                           "share_of_bound_graph": k["share_of_bound_graph"],
                           "per": k["per"], "gpu": gpu}))
+    print(f"[phase] seconds: {spans}; whole script "
+          f"{time.perf_counter() - t_script:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,15 +6,17 @@ Each driver loads a sequence, runs SLAM per frame, prints the
 median/mean tracking time like the reference (stereo_kitti.cc:114-122),
 and saves trajectories.
 
-Port of orb_slam2_tpu/apps/run_slam.py: stereo_kitti, with --scheduler
-and --pipelined.  The other entries and the --vocab /
---grid-map / --ar / --viewer options wait for ROADMAP items 6-8 and raise
+Port of orb_slam2_tpu/apps/run_slam.py: stereo_kitti, with --scheduler,
+--pipelined and --vocabulary (an ORBvoc.txt-format file: relocalization,
+loop closing and global BA).  The other entries and the --grid-map /
+--ar / --viewer options wait for ROADMAP items 7-8 and raise
 NotImplementedError naming theirs.
 
 Usage:
   python -m orb_slam2_tpu_torch.apps.run_slam stereo_kitti SETTINGS.yaml SEQ_DIR
-Options: --device cuda|cpu  --out PREFIX  --max-frames N  --localization
-         --save-map PATH  --scheduler sync|async  --pipelined
+Options: --device cuda|cpu  --vocabulary VOC.txt  --out PREFIX
+         --max-frames N  --localization  --save-map PATH
+         --scheduler sync|async  --pipelined
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from orb_slam2_tpu_torch.system import System
 # what each unported driver and option waits for
 _LATER = {
     "mono_tum": 7, "mono_kitti": 7, "mono_euroc": 7, "stereo_euroc": 8,
-    "rgbd_tum": 8, "vocab": 6, "grid_map": 8, "ar": 8, "viewer": 8,
+    "rgbd_tum": 8, "grid_map": 8, "ar": 8, "viewer": 8,
 }
 
 
@@ -40,13 +42,18 @@ def _later(what: str):
 
 def _build_system(args, sensor: Sensor) -> System:
     settings = Settings.from_yaml(args.settings)
-    for opt in ("vocab", "viewer", "ar", "grid_map"):
+    for opt in ("viewer", "ar", "grid_map"):
         if getattr(args, opt) not in (None, False):
             _later(opt)
     if args.pipelined:
         settings.pipelined = True
-    return System(settings, sensor, scheduler=args.scheduler,
-                  device=args.device)
+    voc = None
+    if args.vocab:
+        from orb_slam2_tpu_torch.places.vocabulary import Vocabulary
+
+        voc = Vocabulary.load_text(args.vocab)
+    return System(settings, sensor, vocabulary=voc,
+                  scheduler=args.scheduler, device=args.device)
 
 
 def _finish(sys_: System, args, times):
@@ -75,7 +82,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the tracker and the mapper "
                          "(cuda raises without a card)")
-    ap.add_argument("--vocab", default=None)
+    ap.add_argument("--vocab", "--vocabulary", dest="vocab", default=None,
+                    help="ORBvoc.txt-format vocabulary: enables "
+                         "relocalization, loop closing and global BA")
     ap.add_argument("--out", default="result")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--localization", action="store_true")

@@ -114,3 +114,37 @@ def ba_problem_from_numpy(cam_T, cam_fixed, cam_mask, pts, pt_mask,
         t(edge_cam, np.int64), t(edge_pt, np.int64),
         t(edge_uv, np.float32), t(edge_inv_sigma2, np.float32),
         t(edge_mask, bool))
+
+
+def vocabulary_from_jax(voc):
+    """This package's Vocabulary over copies of the tree arrays of a
+    JAX-package `Vocabulary` (node descriptors, children, weights,
+    parents, and k, L, levels_up)."""
+    from orb_slam2_tpu_torch.places.vocabulary import Vocabulary
+
+    return Vocabulary(
+        int(voc.k), int(voc.L),
+        np.array(voc.node_desc, np.uint32),
+        np.array(voc.node_children, np.int32),
+        np.array(voc.node_weight, np.float32),
+        np.array(voc.node_parent, np.int32),
+        levels_up=int(voc.levels_up))
+
+
+def pose_graph_problem_from_numpy(R, t, s, fixed, vmask, edge_i, edge_j,
+                                  meas_R, meas_t, meas_s, emask,
+                                  device="cpu"):
+    """A `PoseGraphProblem` on `device` from numpy arrays (or the fields
+    of a JAX-package PoseGraphProblem): float32 Sim3 vertices and
+    measurements, int64 edge indices, bool masks."""
+    from orb_slam2_tpu_torch.solvers import pose_graph
+
+    def t_(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+    return pose_graph.PoseGraphProblem(
+        t_(R, np.float32), t_(t, np.float32), t_(s, np.float32),
+        t_(fixed, bool), t_(vmask, bool),
+        t_(edge_i, np.int64), t_(edge_j, np.int64),
+        t_(meas_R, np.float32), t_(meas_t, np.float32),
+        t_(meas_s, np.float32), t_(emask, bool))

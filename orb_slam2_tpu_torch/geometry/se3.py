@@ -44,6 +44,26 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form (adjugate) 3x3 inverse.  Callers guarantee
+    invertibility (damped SPD blocks in BA, Sim3's V matrix).  Plain
+    arithmetic, so forward-mode autodiff under vmap goes through it."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A21 = f * g - d * i
+    A31 = d * h - e * g
+    det = a * A11 + b * A21 + c * A31
+    s = 1.0 / torch.where(det.abs() > 1e-30, det, 1e-30)
+    rows = torch.stack([
+        torch.stack([A11, c * h - b * i, b * f - c * e], -1),
+        torch.stack([A21, a * i - c * g, c * d - a * f], -1),
+        torch.stack([A31, b * g - a * h, a * e - b * d], -1),
+    ], -2)
+    return rows * s[..., None, None]
+
+
 def exp_so3(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (...,3) axis-angle -> (...,3,3) rotation."""
     theta2 = (w * w).sum(-1, keepdim=True)[..., None]

@@ -11,9 +11,10 @@ a scatter-min that keeps one claiming query per target feature.  Where
 the JAX package vmaps over B keyframes, the tensors here carry a leading
 B dimension.
 
-The relocalization, initialization and Sim3 matchers are not ported yet
-(ROADMAP items 6 and 7).  The fused tracking step (slam/track_step.py)
-inlines the same logic as the tracking matchers.
+The relocalization matcher and the two Sim3 matchers of loop closing are
+here too; the initialization matcher is not ported yet (ROADMAP item 7).
+The fused tracking step (slam/track_step.py) inlines the same logic as
+the tracking matchers.
 
 All functions take fixed-shape padded tensors + validity masks and read
 nothing back to the host.  Scalars (fx, fy, cx, cy, bf, the log scale
@@ -447,6 +448,173 @@ def fuse_points(
     best_idx, best, _ = _best_two(dist, compat)
     ok = in_frustum & (best <= TH_LOW)
     return FuseMatches(best_idx, best, ok)
+
+
+# ---------------------------------------------------------------------------
+# SearchByProjection — relocalization (ref: src/ORBmatcher.cc:1472-1599)
+# and with a Sim3 pose — loop closing (ref: src/ORBmatcher.cc:290-403)
+# ---------------------------------------------------------------------------
+
+def _window_compat(pts_w, pc, Ow, pt_mask, pt_min_dist, pt_max_dist, band,
+                   feat_xy, feat_octave, fx, fy, cx, cy, bounds,
+                   scale_factors, log_sf, n_levels, th):
+    """Shared body of the guided searches: project camera-frame points
+    `pc`, gate on depth, bounds and the distance band
+    [band[0]*minDist, band[1]*maxDist] from the camera centre `Ow`, and
+    open a th-scaled window at the predicted octave +/-1.  Returns
+    (compat (M, N), vis (M,))."""
+    z = pc[:, 2]
+    z_safe = z.clamp(min=1e-6)
+    u = fx * pc[:, 0] / z_safe + cx
+    v = fy * pc[:, 1] / z_safe + cy
+    po = pts_w - Ow
+    dist3d = torch.sqrt((po * po).sum(1))
+    level = predict_level(pt_max_dist, dist3d.clamp(min=1e-9), log_sf,
+                          n_levels)
+    vis = (
+        pt_mask & (z > 0) & _in_bounds(u, v, bounds)
+        & (dist3d >= band[0] * pt_min_dist)
+        & (dist3d <= band[1] * pt_max_dist)
+    )
+    radius = th * scale_factors[level]
+    du = torch.abs(u[:, None] - feat_xy[None, :, 0])
+    dv = torch.abs(v[:, None] - feat_xy[None, :, 1])
+    window = (du < radius[:, None]) & (dv < radius[:, None])
+    fo = feat_octave.long()[None, :]
+    oct_ok = (fo >= level[:, None] - 1) & (fo <= level[:, None] + 1)
+    return window & oct_ok & vis[:, None], vis
+
+
+def search_reloc_points(
+    pts_w: torch.Tensor,          # (M, 3) keyframe map points
+    pt_mask: torch.Tensor,        # (M,) valid & not already found
+    pt_desc: torch.Tensor,
+    pt_min_dist: torch.Tensor, pt_max_dist: torch.Tensor,
+    kf_angle: torch.Tensor,       # (M,) angle of the point's KF keypoint
+    Tcw: torch.Tensor,
+    feat_xy: torch.Tensor, feat_octave: torch.Tensor,
+    feat_desc: torch.Tensor, feat_angle: torch.Tensor,
+    feat_free: torch.Tensor,
+    fx, fy, cx, cy,
+    bounds: torch.Tensor,
+    scale_factors: torch.Tensor,
+    log_scale_factor,
+    n_levels: int,
+    th,
+    orb_dist: int = 100,
+    check_rotation: bool = True,
+) -> Matches:
+    """Guided reprojection for relocalization: project the candidate KF's
+    points with the hypothesised pose, search a th-scaled window at the
+    predicted octave +/-1, accept at `orb_dist` (ref :1472-1599)."""
+    dev = pts_w.device
+    fx, fy, cx, cy, log_sf = (consts.scalar(v, dev) for v in
+                              (fx, fy, cx, cy, log_scale_factor))
+    R, t = Tcw[:3, :3], Tcw[:3, 3]
+    compat, vis = _window_compat(
+        pts_w, pts_w @ R.T + t, -R.T @ t, pt_mask, pt_min_dist,
+        pt_max_dist, (0.8, 1.2), feat_xy, feat_octave, fx, fy, cx, cy,
+        bounds, scale_factors, log_sf, n_levels, th)
+    dist = hamming.distance_matrix(pt_desc, feat_desc)
+    best_idx, best, _ = _best_two(dist, compat & feat_free[None, :])
+    ok = vis & (best <= orb_dist)
+    if check_rotation:
+        ok = hamming.rotation_histogram_filter(
+            kf_angle, feat_angle[best_idx], ok
+        )
+    ok = ok & resolve_duplicates(best_idx, best, ok, feat_xy.shape[0])
+    return Matches(best_idx, best, ok)
+
+
+def search_by_sim3_projection(
+    pts_w: torch.Tensor, pt_mask: torch.Tensor, pt_desc: torch.Tensor,
+    pt_min_dist: torch.Tensor, pt_max_dist: torch.Tensor,
+    Scw_R: torch.Tensor, Scw_t: torch.Tensor, Scw_s: torch.Tensor,
+    feat_xy: torch.Tensor, feat_octave: torch.Tensor,
+    feat_desc: torch.Tensor, feat_free: torch.Tensor,
+    fx, fy, cx, cy,
+    bounds: torch.Tensor,
+    scale_factors: torch.Tensor,
+    log_scale_factor,
+    n_levels: int,
+    th=10.0,
+    accept_dist: int = TH_LOW,
+) -> Matches:
+    """SearchByProjection with a Sim3 camera pose (ref :290-403), used to
+    attach loop-map points to the current keyframe.  The scale s divides
+    out of the projection; the distance band uses the descaled center."""
+    dev = pts_w.device
+    fx, fy, cx, cy, log_sf = (consts.scalar(v, dev) for v in
+                              (fx, fy, cx, cy, log_scale_factor))
+    pc = (pts_w @ Scw_R.T) * Scw_s + Scw_t[None, :]
+    Ow = -(Scw_R.T @ Scw_t) / Scw_s.clamp(min=1e-12)
+    compat, vis = _window_compat(
+        pts_w, pc, Ow, pt_mask, pt_min_dist, pt_max_dist, (1.0, 1.0),
+        feat_xy, feat_octave, fx, fy, cx, cy, bounds, scale_factors,
+        log_sf, n_levels, th)
+    dist = hamming.distance_matrix(pt_desc, feat_desc)
+    best_idx, best, _ = _best_two(dist, compat & feat_free[None, :])
+    ok = vis & (best <= accept_dist)
+    ok = ok & resolve_duplicates(best_idx, best, ok, feat_xy.shape[0])
+    return Matches(best_idx, best, ok)
+
+
+def search_by_sim3_mutual(
+    pts1_w: torch.Tensor, mask1: torch.Tensor, desc1: torch.Tensor,
+    min1: torch.Tensor, max1: torch.Tensor, octave1: torch.Tensor,
+    xy1: torch.Tensor,
+    pts2_w: torch.Tensor, mask2: torch.Tensor, desc2: torch.Tensor,
+    min2: torch.Tensor, max2: torch.Tensor, octave2: torch.Tensor,
+    xy2: torch.Tensor,
+    T1w: torch.Tensor, T2w: torch.Tensor,
+    S12_R: torch.Tensor, S12_t: torch.Tensor, S12_s: torch.Tensor,
+    fx, fy, cx, cy,
+    bounds: torch.Tensor,
+    scale_factors: torch.Tensor,
+    log_scale_factor,
+    n_levels: int,
+    th=7.5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SearchBySim3 (ref :1102-1326): project KF1 points into KF2 via
+    S21 and KF2 points into KF1 via S12; keep agreements.  Returns
+    (match12 (N1,) int64 index into KF2 or -1, ok (N1,) bool)."""
+    dev = pts1_w.device
+    fx, fy, cx, cy, log_sf = (consts.scalar(v, dev) for v in
+                              (fx, fy, cx, cy, log_scale_factor))
+    s21 = 1.0 / S12_s.clamp(min=1e-12)
+    R21 = S12_R.T
+    t21 = -s21 * (R21 @ S12_t)
+    origin = torch.zeros(3, dtype=pts1_w.dtype, device=dev)
+
+    def project_side(pts_w, Tw, Rrel, trel, srel, min_d, max_d,
+                     feat_xy, feat_oct, mask):
+        pc_own = pts_w @ Tw[:3, :3].T + Tw[:3, 3]
+        pc = (pc_own @ Rrel.T) * srel + trel[None, :]
+        # the band is measured in the other camera's frame, from its centre
+        return _window_compat(
+            pc, pc, origin, mask, min_d, max_d, (1.0, 1.0), feat_xy,
+            feat_oct, fx, fy, cx, cy, bounds, scale_factors, log_sf,
+            n_levels, th)
+
+    compat12, vis1 = project_side(
+        pts1_w, T1w, R21, t21, s21, min1, max1, xy2, octave2, mask1
+    )
+    compat21, vis2 = project_side(
+        pts2_w, T2w, S12_R, S12_t, S12_s, min2, max2, xy1, octave1, mask2
+    )
+
+    dist = hamming.distance_matrix(desc1, desc2)
+    compat12 = compat12 & mask2[None, :]
+    compat21 = compat21 & mask1[None, :]
+    idx12, best12, _ = _best_two(dist, compat12)
+    idx21, best21, _ = _best_two(dist.T, compat21)
+
+    ok12 = vis1 & (best12 <= TH_HIGH)
+    ok21 = vis2 & (best21 <= TH_HIGH)
+    # mutual agreement (ref :1296-1306)
+    agree = ok12 & ok21[idx12] & (
+        idx21[idx12] == torch.arange(idx12.shape[0], device=dev))
+    return torch.where(agree, idx12, -1), agree
 
 
 def to_host(m: Matches):

@@ -17,9 +17,11 @@ each one with dummy inputs before the first frame; afterwards a run whose
 live sizes stay under the pins captures nothing on the hot path.
 
 Port of orb_slam2_tpu/precompile.py without its XLA specifics (there is
-no compile cache: a graph lives in its process).  The stages "reloc",
-"loop" and "gba" wait for the relocalizer, the loop closer and global BA
-(ROADMAP item 6) and raise NotImplementedError naming it.
+no compile cache: a graph lives in its process).  The stages "reloc"
+and "loop" (with a vocabulary) and "gba" run their eager programs once at
+the pinned buckets, so the device libraries behind them (`eigh`, the
+batched solves, `index_add_`) are initialised and the allocator holds
+their blocks before the run; none of them is captured as a graph.
 
 Usage:
     system = System(settings, Sensor.STEREO)
@@ -39,12 +41,13 @@ from orb_slam2_tpu_torch.ops import matching
 from orb_slam2_tpu_torch.ops.frontend import padded_total
 from orb_slam2_tpu_torch.slam import device_map
 from orb_slam2_tpu_torch.slam import track_step as ts
-from orb_slam2_tpu_torch.solvers import ba, pose_lm
+from orb_slam2_tpu_torch.solvers import (
+    ba, epnp, pose_graph, pose_lm, sim3_solver,
+)
 from orb_slam2_tpu_torch.solvers import triangulation as tri
 from orb_slam2_tpu_torch.utils import bucket_size
 
-STAGES = ("frontend", "track", "modular", "mapping")
-LATER_STAGES = ("reloc", "loop", "gba")     # ROADMAP item 6
+STAGES = ("frontend", "track", "modular", "mapping", "reloc", "loop", "gba")
 MIRROR_DELTA_MAX_ROWS = 16384
 
 
@@ -53,16 +56,19 @@ def precompile(system, stages: Optional[List[str]] = None,
     """Run every device program the given System can dispatch, once, at
     its pinned shapes.
 
-    stages: subset of {"frontend", "track", "modular", "mapping"};
-    default = all of them.  Returns {program_name: seconds} (warm-up,
-    capture and execution of the dummy call).
+    stages: subset of {"frontend", "track", "modular", "mapping",
+    "reloc", "loop", "gba"}; default = all applicable to the System's
+    configuration (reloc/loop only when a vocabulary is present).
+    Returns {program_name: seconds} (warm-up, capture and execution of
+    the dummy call).
     """
+    have_voc = system.vocabulary is not None
     if stages is None:
-        stages = list(STAGES)
+        stages = ["frontend", "track", "modular", "mapping"]
+        if have_voc:
+            stages += ["reloc", "loop"]
+        stages += ["gba"]
     for st in stages:
-        if st in LATER_STAGES:
-            raise NotImplementedError(
-                f"precompile stage {st!r} waits for ROADMAP item 6")
         if st not in STAGES:
             raise ValueError(f"unknown precompile stage {st!r}")
     s = system.settings
@@ -207,6 +213,18 @@ def precompile(system, stages: Optional[List[str]] = None,
 
     add("modular", "optimize_pose", _optimize_pose)
 
+    if have_voc:
+        def _search_by_nodes():
+            for ratio in (0.7, 0.75):
+                m = matching.search_by_nodes(
+                    fb["desc"], fb["node"], fb["valid"], fb["angle"],
+                    fb["desc"], fb["node"], fb["valid"], fb["angle"],
+                    ratio=ratio,
+                )
+                matching.to_host(m)
+
+        add("modular", "search_by_nodes", _search_by_nodes)
+
     def _local_points():
         proj = matching.project_points(
             up(np.zeros((M_loc, 3), np.float32)),
@@ -315,10 +333,10 @@ def precompile(system, stages: Optional[List[str]] = None,
 
     K, P, E = s.bucket_ba_cams, s.bucket_ba_pts, s.bucket_ba_edges
 
-    def _local_ba():
+    def _ba_problem(K, P, E):
         uv = np.zeros((E, 3), np.float32)
         uv[:, 2] = -1.0
-        prob = ba.BAProblem(
+        return ba.BAProblem(
             eye4[None].expand(K, 4, 4).contiguous(),
             up(np.concatenate([[True], np.zeros(K - 1, bool)])),
             up(np.ones(K, bool)),
@@ -328,12 +346,166 @@ def precompile(system, stages: Optional[List[str]] = None,
             up((np.arange(E) % K).astype(np.int64)),
             up((np.arange(E) % P).astype(np.int64)),
             up(uv), up(np.ones(E, np.float32)), up(np.ones(E, bool)))
+
+    def _local_ba():
+        prob = _ba_problem(K, P, E)
         for second in (True, False):
             out = ba.local_ba_chain(prob, *cam, iters1=5, iters2=10,
                                     mode="dense", second_round=second)
             out[0].cpu()
 
     add("mapping", "local_ba_chain", _local_ba)
+
+    # ------------------------------------------------------------------
+    # relocalization (EPnP RANSAC + guided reprojection)
+    # ------------------------------------------------------------------
+    fx, fy, cx, cy = cam[:4]
+    eye3 = up(np.eye(3, dtype=np.float32))
+
+    def zeros(*shape, dtype=np.float32):
+        return up(np.zeros(shape, dtype))
+
+    def ones(*shape, dtype=np.float32):
+        return up(np.ones(shape, dtype))
+
+    if have_voc:
+        def _pnp():
+            # BoW match counts land in [15, ~500]: two bucket shapes
+            for Mr in (s.bucket_reloc, 2 * s.bucket_reloc):
+                res = epnp.solve_pnp_ransac(
+                    up(rng.normal(0, 1, (Mr, 3)).astype(np.float32)),
+                    zeros(Mr, 2), ones(Mr), zeros(Mr, dtype=bool),
+                    up(rng.integers(0, Mr, (128, 6)).astype(np.int64)),
+                    fx, fy, cx, cy,
+                )
+                res.Tcw.cpu()
+
+        add("reloc", "solve_pnp_ransac", _pnp)
+
+        def _reloc_search():
+            # guided reprojection pads candidates to the KF feature
+            # capacity (relocalization.py) — one shape per orb_dist round
+            Mr = system.store.n_feat
+            for orb_dist in (100, 64):
+                m = matching.search_reloc_points(
+                    zeros(Mr, 3), zeros(Mr, dtype=bool),
+                    zeros(Mr, 8, dtype=np.uint32),
+                    zeros(Mr), ones(Mr), zeros(Mr),
+                    eye4,
+                    fb["xy"], fb["octave"], fb["desc"], fb["angle"],
+                    fb["valid"],
+                    fx, fy, cx, cy, bounds, sf, log_sf, n_levels,
+                    10.0, orb_dist=orb_dist,
+                )
+                matching.to_host(m)
+
+        add("reloc", "search_reloc_points", _reloc_search)
+
+    # ------------------------------------------------------------------
+    # loop closing: Sim3 solve/refine, guided projection, pose graph
+    # ------------------------------------------------------------------
+    if have_voc:
+        fix_scale = sensor != Sensor.MONOCULAR
+        M_lp = s.bucket_loop_pts
+
+        def _sim3_ladder():
+            # BoW match counts (RANSAC) and Sim3-extended counts (refine)
+            # land in [20, ~512] on real circuits
+            for n_pad in (s.bucket_sim3, 2 * s.bucket_sim3,
+                          4 * s.bucket_sim3):
+                pts = up(rng.normal(0, 1, (n_pad, 3)).astype(np.float32))
+                uv = zeros(n_pad, 2)
+                mk = zeros(n_pad, dtype=bool)
+                res = sim3_solver.solve_sim3_ransac(
+                    pts, pts, uv, uv, ones(n_pad), ones(n_pad), mk,
+                    up(rng.integers(0, n_pad, (128, 3)).astype(np.int64)),
+                    fx, fy, cx, cy, fix_scale=fix_scale,
+                )
+                out = sim3_solver.refine_sim3(
+                    pts, pts, uv, uv, ones(n_pad), ones(n_pad),
+                    mk, res.R12, res.t12, res.s12,
+                    fx, fy, cx, cy, fix_scale=fix_scale,
+                )
+                out[0].cpu()
+
+        add("loop", "sim3_solve+refine", _sim3_ladder)
+
+        def _sim3_mutual():
+            nf = system.store.n_feat
+            side = (zeros(nf, 3), zeros(nf, dtype=bool),
+                    zeros(nf, 8, dtype=np.uint32), zeros(nf), ones(nf),
+                    zeros(nf, dtype=np.int32), zeros(nf, 2))
+            _, agree = matching.search_by_sim3_mutual(
+                *side, *side, eye4, eye4, eye3, zeros(3), ones(),
+                fx, fy, cx, cy, bounds, sf, log_sf, n_levels, th=7.5,
+            )
+            agree.cpu()
+
+        add("loop", "search_by_sim3_mutual", _sim3_mutual)
+
+        def _sim3_projection():
+            # th=10 (acceptance count) and th=4 (SearchAndFuse)
+            for th in (10.0, 4.0):
+                m = matching.search_by_sim3_projection(
+                    zeros(M_lp, 3), zeros(M_lp, dtype=bool),
+                    zeros(M_lp, 8, dtype=np.uint32),
+                    zeros(M_lp), ones(M_lp),
+                    eye3, zeros(3), ones(),
+                    fb["xy"], fb["octave"], fb["desc"], fb["valid"],
+                    fx, fy, cx, cy, bounds, sf, log_sf, n_levels, th,
+                )
+                matching.to_host(m)
+
+        add("loop", "search_by_sim3_projection", _sim3_projection)
+
+        def _pose_graph():
+            Kp, Ep = s.bucket_pg_cams, s.bucket_pg_edges
+            prob = pose_graph.PoseGraphProblem(
+                eye3[None].expand(Kp, 3, 3).contiguous(),
+                zeros(Kp, 3), ones(Kp),
+                up(np.concatenate([[True], np.zeros(Kp - 1, bool)])),
+                ones(Kp, dtype=bool),
+                up((np.arange(Ep) % Kp).astype(np.int64)),
+                up(((np.arange(Ep) + 1) % Kp).astype(np.int64)),
+                eye3[None].expand(Ep, 3, 3).contiguous(),
+                zeros(Ep, 3), ones(Ep), ones(Ep, dtype=bool),
+            )
+            mode = "dense" if Kp <= 256 else "cg"
+            _, _, s_o = pose_graph.optimize(prob, iters=20, mode=mode)
+            s_o.cpu()
+
+        add("loop", "pose_graph", _pose_graph)
+
+    # ------------------------------------------------------------------
+    # global BA (background thread; chunked LM + outlier pass)
+    # ------------------------------------------------------------------
+    def _gba():
+        # GBA packs ALL keyframes; its buckets outgrow the local-BA pins
+        # as the map grows.  The three dims grow INDEPENDENTLY
+        # (StickyBuckets), so warm the reachable lattice: K in {2K, 4K}
+        # (dense mode caps at 64 cams, global_ba.py _snapshot), P in
+        # {P, 2P, 4P}, E/P in {2, 4} (every point carries 2-4
+        # observations in practice; E below 2P needs majority
+        # single-observation points, which MapPointCulling removes).
+        rungs = []
+        for Kg in (2 * K, 4 * K):
+            for Pg in (P, 2 * P, 4 * P):
+                for Eg in (2 * Pg, 4 * Pg):
+                    # E's sticky minimum is the configured edge bucket —
+                    # shapes below it are unreachable
+                    Eg = max(Eg, E)
+                    if (Kg, Pg, Eg) not in rungs:
+                        rungs.append((Kg, Pg, Eg))
+        for Kg, Pg, Eg in rungs:
+            prob = _ba_problem(Kg, Pg, Eg)
+            cam_T, _, _ = ba.optimize(prob, *cam, iters=5, use_kernel=True,
+                                      mode="dense")
+            bad = ba.classify_outliers(prob, *cam)
+            # the outlier-mask update between GBA passes (global_ba.py)
+            (prob.edge_mask & ~bad).cpu()
+            cam_T.cpu()
+
+    add("gba", "global_ba", _gba)
 
     # ------------------------------------------------------------------
     out: Dict[str, float] = {}

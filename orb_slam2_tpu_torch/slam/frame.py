@@ -206,7 +206,8 @@ class FrameBuilder:
 
     def _assign_bow(self, ff: FrameFeatures):
         if self.vocabulary is not None:
-            node, word = self.vocabulary.assign_nodes(ff.desc, ff.valid)
+            node, word = self.vocabulary.assign_nodes(
+                ff.device("desc"), ff.device("valid"))
             ff.node[:] = node
             ff.word[:] = word
 

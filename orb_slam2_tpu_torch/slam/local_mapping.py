@@ -7,9 +7,9 @@ keyframe insertion (deterministic mode, SURVEY §4.4) or from a worker
 thread (async mode).  All geometry (epipolar matching, triangulation
 gates, fuse projection, Schur-complement BA) is batched on device.
 
-Port of orb_slam2_tpu/slam/local_mapping.py for the synchronous
-scheduler, without a loop closer or a vocabulary (ROADMAP item 6 brings
-both, and global BA).  Each stage keeps its dispatch/apply split: the
+Port of orb_slam2_tpu/slam/local_mapping.py.  With a vocabulary the pass
+assigns the keyframe's BoW nodes; with a loop closer it hands each
+processed keyframe on to it.  Each stage keeps its dispatch/apply split: the
 dispatch queues the device work and starts the copy of its result into
 pinned host memory (`utils.HostCopy`), the wait (`fetch_async`) happens
 outside `store.lock`, and the apply re-checks the `_map_guard` snapshot
@@ -39,14 +39,11 @@ from orb_slam2_tpu_torch.utils import (
 class LocalMapper:
     def __init__(self, settings: Settings, sensor: Sensor, store: MapStore,
                  loop_closer=None, vocabulary=None, *, device):
-        if loop_closer is not None or vocabulary is not None:
-            raise NotImplementedError(
-                "loop closing and the vocabulary wait for ROADMAP item 6")
         self.s = settings
         self.sensor = sensor
         self.store = store
-        self.loop_closer = None
-        self.vocabulary = None
+        self.loop_closer = loop_closer
+        self.vocabulary = vocabulary
         self.device = torch_device(device)
         # device-resident keyframe feature mirror: tri/fuse dispatches
         # gather neighbor blocks on device instead of stacking
@@ -137,6 +134,11 @@ class LocalMapper:
             # keyframe ids restart in the fresh store
             self.kf_mirror.clear()
             store.bow_hooks.append(self.kf_mirror.node_dirty)
+        # cascade so the loop closer never holds a discarded map
+        # (ref: Tracking::Reset clears LoopClosing too,
+        # src/Tracking.cc:1524-1529)
+        if self.loop_closer is not None:
+            self.loop_closer.reset(store)
 
     def spin(self, block: bool = True):
         """Drain the keyframe queue (ref: LocalMapping::Run loop).
@@ -179,8 +181,27 @@ class LocalMapper:
             # pass bails; its earlier writes went to the discarded map.
             store = self.store
             lock = store.lock
-            # (the BoW assignment stage of the JAX package runs only with
-            # a vocabulary: ROADMAP item 6)
+            # BoW assignment for keyframes inserted without it (ref:
+            # KeyFrame::ComputeBoW in LocalMapping::ProcessNewKeyFrame —
+            # the reference also computes BoW on the mapping thread, not
+            # the tracking thread).  The descent is DISPATCHED here
+            # without a wait; its device node output chains straight into
+            # the triangulation dispatch and the host result lands with
+            # the triangulation copy (one wait for both).
+            pend_bow = None
+            if self.vocabulary is not None:
+                with lock:
+                    if self.store is not store:
+                        return
+                    need_bow = (store.kf_valid[kf]
+                                and not store.kf_bow_assigned(kf))
+                    if need_bow:
+                        desc = store.kf_device(kf, "desc")
+                        fv = store.kf_device(kf, "valid")
+                if need_bow:
+                    with self.timers("lm/bow_dispatch"):
+                        pend_bow = self.vocabulary.assign_nodes_async(
+                            desc, fv)
             with lock, self.timers("lm/process_new_kf"):
                 if self.store is not store:
                     return
@@ -196,10 +217,22 @@ class LocalMapper:
             with lock, self.timers("lm/triangulate"):
                 if self.store is not store:
                     return
-                pend_tri = self._triangulate_dispatch(kf)
-            if pend_tri is not None:
+                pend_tri = self._triangulate_dispatch(kf, pend_bow)
+            if pend_tri is not None or pend_bow is not None:
                 with self.timers("lm/triangulate_wait"):
-                    fetch_async(pend_tri["packed"])
+                    fetch_async((pend_tri["packed"]
+                                 if pend_tri is not None else None,
+                                 pend_bow))
+            if pend_bow is not None:
+                node, word = self.vocabulary.finalize_nodes(*pend_bow)
+                with lock, self.timers("lm/bow_apply"):
+                    if self.store is not store:
+                        return
+                    # the tracking thread's lazy _ensure_kf_bow can win
+                    # the race while the descent was in flight
+                    if store.kf_valid[kf] \
+                            and not store.kf_bow_assigned(kf):
+                        store.set_kf_bow(kf, node, word)
             if pend_tri is not None:
                 with lock, self.timers("lm/triangulate_apply"):
                     if self.store is not store:
@@ -231,6 +264,8 @@ class LocalMapper:
                     self._cull_keyframes(kf)
             if self.store is not store:
                 return
+            if self.loop_closer is not None:
+                self.loop_closer.insert_keyframe(kf)
             for cb in self.on_keyframe:
                 cb(kf)
         finally:
@@ -277,11 +312,14 @@ class LocalMapper:
         correction / GBA pose remaps bump it under store.lock)."""
         return (id(self.store), self.store.big_change_idx)
 
-    def _triangulate_dispatch(self, kf: int):
+    def _triangulate_dispatch(self, kf: int, pend_bow=None):
         """Epipolar-search + triangulate against the top covisible
         keyframes, with the reference's baseline gates.  Gathers store
         state and dispatches ONE batched device call (no pull) — call
-        under store.lock; returns a pending dict or None."""
+        under store.lock; returns a pending dict or None.
+
+        `pend_bow` is the in-flight vocabulary descent for `kf` (its
+        device node ids feed the search before the host has them)."""
         store = self.store
         nn = 10 if self.sensor != Sensor.MONOCULAR else 20
         neighbors = store.best_covisibles(kf, nn)
@@ -322,7 +360,8 @@ class LocalMapper:
             nb_mask = np.zeros(B, bool)
             nb_mask[: len(use)] = True
 
-        node1 = store.kf_device(kf, "node")
+        node1 = (pend_bow[0] if pend_bow is not None
+                 else store.kf_device(kf, "node"))
         s = self.s
         mir = self.kf_mirror
         if mir is not None and mir.ensure(store, [kf] + use):
@@ -647,14 +686,17 @@ class LocalMapper:
     # ------------------------------------------------------------------
     def _gather_ba_problem(
         self, cams: List[int], fixed: List[int], pids: np.ndarray,
-        store: Optional[MapStore] = None,
+        store: Optional[MapStore] = None, buckets=None,
     ) -> Tuple[ba.BAProblem, Dict[int, int], np.ndarray, list]:
         """Pack a window into a fixed-shape BAProblem (bucketed padding).
 
         `store` lets local_bundle_adjustment keep the whole pass on the
-        store it captured before a concurrent reset swap."""
+        store it captured before a concurrent reset swap.  `buckets`
+        overrides the local-BA sticky buckets — global BA packs the
+        WHOLE map, and letting it grow the shared buckets would leave
+        every subsequent local BA padded to global size."""
         store = self.store if store is None else store
-        buckets = self._buckets
+        buckets = self._buckets if buckets is None else buckets
         all_cams = list(cams) + list(fixed)
         cam_index = {c: i for i, c in enumerate(all_cams)}
         K = buckets("K", len(all_cams))
@@ -777,12 +819,14 @@ class LocalMapper:
                                  fixed_kf: Optional[int] = None,
                                  loop_kf: int = 0,
                                  background: bool = False, gba=None):
-        """ref: Optimizer::GlobalBundleAdjustemnt (src/Optimizer.cc:41-237).
-        The JAX package runs it through slam/global_ba.GlobalBA, which
-        this package has not ported: stereo never calls it without a loop
-        closer."""
-        raise NotImplementedError(
-            "global BA (slam/global_ba.py) waits for ROADMAP item 6")
+        """ref: Optimizer::GlobalBundleAdjustemnt (src/Optimizer.cc:41-237)
+        with the reference's background/abort/mid-run-correction protocol
+        (src/LoopClosing.cc:646-757) — see slam/global_ba.GlobalBA."""
+        from orb_slam2_tpu_torch.slam.global_ba import GlobalBA
+
+        runner = gba if gba is not None else GlobalBA(self)
+        return runner.launch(loop_kf, iters=iters, fixed_kf=fixed_kf,
+                             background=background)
 
     # ------------------------------------------------------------------
     def _cull_keyframes(self, kf: int):

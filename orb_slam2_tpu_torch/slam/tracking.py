@@ -14,11 +14,10 @@ synchronous and pipelined.  The fused step comes from
 `track_step.build_track_step` (a `GraphStep` replayed as one CUDA graph a
 frame on a card, the eager step on the CPU); the pipelined path drives
 `track_step.build_track_step_chained` through a `ChainRunner`, which on a
-card returns from a dispatch without waiting for the device.  Waiting for
-later ROADMAP items, each raising NotImplementedError: monocular
-initialization (item 7), and relocalization plus localization mode's
-visual-odometry branch (item 6; without a relocalizer `_relocalization`
-returns False, as the JAX package's does).
+card returns from a dispatch without waiting for the device.  With a
+keyframe database and a relocalizer a LOST camera relocalizes
+(slam/relocalization.py).  Monocular initialization waits for ROADMAP
+item 7 and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -237,16 +236,14 @@ class Tracker:
         *,
         device,
     ):
-        if kf_database is not None or relocalizer is not None:
-            raise NotImplementedError(
-                "the keyframe database and relocalization wait for "
-                "ROADMAP item 6")
         self.device = torch_device(device)
         self.s = settings
         self.sensor = sensor
         self.store = store
         self.builder = builder
         self.local_mapper = local_mapper
+        self.kf_database = kf_database
+        self.relocalizer = relocalizer
 
         self.state = State.NO_IMAGES_YET
         self.velocity: Optional[np.ndarray] = None
@@ -1031,9 +1028,11 @@ class Tracker:
         if (self.builder.vocabulary is not None
                 and not (frame.feats.node >= 0).any()):
             node, word = self.builder.vocabulary.assign_nodes(
-                frame.feats.desc, frame.feats.valid)
+                frame.feats.device("desc"), frame.feats.device("valid"))
             frame.feats.node[:] = node
             frame.feats.word[:] = word
+            if frame.feats.dev:
+                frame.feats.dev.pop("node", None)   # cached before this
 
     def _ensure_kf_bow(self, kf: int):
         """Lazy keyframe BoW for fallbacks that race the mapping
@@ -1048,8 +1047,8 @@ class Tracker:
         if voc is None or not store.kf_valid[kf] \
                 or store.kf_bow_assigned(kf):
             return
-        node, word = voc.assign_nodes(store.kf_desc[kf],
-                                      store.kf_feat_valid[kf])
+        node, word = voc.assign_nodes(store.kf_device(kf, "desc"),
+                                      store.kf_device(kf, "valid"))
         store.set_kf_bow(kf, node, word)
 
     # ------------------------------------------------------------------
@@ -1451,15 +1450,31 @@ class Tracker:
     def _track_localization_mode(self) -> bool:
         """ref: src/Tracking.cc:328-392: in localization mode run both a
         motion-model track and (if VO-drifting) relocalization."""
+        frame = self.current
         if self.state == State.LOST:
             return self._relocalization()
         if not self.vo_flag:
             if self.velocity is not None:
                 return self._track_with_motion_model()
             return self._track_reference_keyframe()
-        raise NotImplementedError(
-            "localization mode's visual-odometry branch needs "
-            "relocalization: ROADMAP item 6")
+        # mbVO: few map matches — try both motion model and reloc
+        ok_mm = False
+        if self.velocity is not None:
+            ok_mm = self._track_with_motion_model()
+        saved = (frame.Tcw.copy() if frame.Tcw is not None else None,
+                 frame.bindings.copy(), frame.outlier.copy())
+        ok_reloc = self._relocalization()
+        if ok_reloc:
+            self.vo_flag = False
+            return True
+        if ok_mm:
+            frame.Tcw, frame.bindings, frame.outlier = saved
+            if self.vo_flag:
+                for i in np.nonzero(frame.bindings >= 0)[0]:
+                    if not frame.outlier[i]:
+                        self.store.pt_found[int(frame.bindings[i])] += 1
+            return True
+        return False
 
     # ------------------------------------------------------------------
     # local map tracking
@@ -1714,9 +1729,16 @@ class Tracker:
 
     def _relocalization(self) -> bool:
         """ref: Tracking::Relocalization (src/Tracking.cc:1342-1503).
-        Without a relocalizer (ROADMAP item 6) it fails, as the JAX
-        package's does."""
-        return False
+        Without a relocalizer it fails."""
+        if self.relocalizer is None:
+            return False
+        ok = self.relocalizer.relocalize(self.current, self)
+        if ok:
+            self.last_reloc_frame_id = self.current.frame_id
+            self.relocalizations += 1
+            self.log.info("relocalized at frame %d (total %d)",
+                          self.current.frame_id, self.relocalizations)
+        return ok
 
     # ------------------------------------------------------------------
     def reset(self):
@@ -1737,10 +1759,16 @@ class Tracker:
             self.s, self.sensor,
             new_store, self.builder,
             local_mapper=self.local_mapper,
+            kf_database=self.kf_database,
+            relocalizer=self.relocalizer,
             device=self.device,
         )
         if self.local_mapper is not None:
             self.local_mapper.reset(self.store)
+        if self.kf_database is not None:
+            self.kf_database.clear()
+        if self.relocalizer is not None:
+            self.relocalizer.store = self.store
         self.resets = n_resets
 
     def set_localization_mode(self, on: bool):

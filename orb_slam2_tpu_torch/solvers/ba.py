@@ -116,25 +116,6 @@ def edge_chi2(prob: BAProblem, fx, fy, cx, cy, bf):
     return _chi2(r, row_mask, prob.edge_inv_sigma2), is_st, row_mask[:, 0]
 
 
-def _inv3x3(A):
-    """Batched closed-form (adjugate) 3x3 inverse.  Callers guarantee
-    invertibility (Hpp blocks are damped SPD)."""
-    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    A11 = e * i - f * h
-    A21 = f * g - d * i
-    A31 = d * h - e * g
-    det = a * A11 + b * A21 + c * A31
-    s = 1.0 / torch.where(det.abs() > 1e-30, det, 1e-30)
-    rows = torch.stack([
-        torch.stack([A11, c * h - b * i, b * f - c * e], -1),
-        torch.stack([A21, a * i - c * g, c * d - a * f], -1),
-        torch.stack([A31, b * g - a * h, a * e - b * d], -1),
-    ], -2)
-    return rows * s[..., None, None]
-
-
 def _onehots(prob: BAProblem, K: int, P: int):
     """One-hot edge->camera (E,K) and edge->point (E,P) matrices: segment
     reductions over the edge list become matmuls.  Only materialized for
@@ -335,7 +316,7 @@ def optimize(
             onehots=onehots,
         )
         # regularize padded points so inversion stays sane
-        Hpp_inv = _inv3x3(Hpp + lam * eye3 + pad_reg)
+        Hpp_inv = se3.inv3x3(Hpp + lam * eye3 + pad_reg)
 
         if mode == "dense":
             dc = _solve_cameras_dense(Hcc, Hcp_e, Hpp_inv, gc, gp, prob,

@@ -1,25 +1,28 @@
 """System: the public API facade.
 
 Equivalent of ORB_SLAM2::System (ref: src/System.cc:33-678 /
-include/System.h:61-136): builds the map, frame builder, tracker and
-local mapper, wires them together, exposes the per-frame Track* entries,
+include/System.h:61-136): builds the map, frame builder, tracker,
+local mapper and (with a vocabulary) the keyframe database, relocalizer
+and loop closer, wires them together, exposes the per-frame Track* entries,
 the SLAM/localization mode switch, reset/shutdown, and the trajectory and
 map savers.
 
 Port of orb_slam2_tpu/system.py for stereo and RGB-D.  Scheduling: the
 reference spawns LocalMapping/LoopClosing/Viewer threads
 (src/System.cc:85-104); here `scheduler="sync"` (default) runs mapping
-deterministically inline after each keyframe (the testing mode SURVEY
-§4.4 calls for) and `scheduler="async"` moves it to a worker thread with
-the same queue semantics.  `settings.pipelined` selects the Tracker's
+and loop closing deterministically inline after each keyframe (the
+testing mode SURVEY §4.4 calls for) and `scheduler="async"` moves each to
+a worker thread of its own with the same queue semantics, global BA to a
+third spawned by the loop closer.  `settings.pipelined` selects the Tracker's
 pipelined path; `poll()` drains its delivered results between frames.
 `device` is where the frontend, the tracking step and the mapper run: the
 card unless the caller asks for "cpu"; "cuda" raises without a card.
-Both threads enqueue on the device's default stream, so the mapper's
-kernels and the tracker's replay serialise on the card.  Waiting for
-later ROADMAP items, each raising NotImplementedError: the vocabulary,
-loop closing (and its thread) and relocalization (item 6), monocular
-(item 7), and the viewer and grid-map savers (item 8).
+All threads enqueue on the device's default stream, so the workers'
+kernels and the tracker's replay serialise on the card; a worker's pass
+holds `utils.DEVICE_CAPTURE_LOCK`, so a graph capture never meets another
+thread on the device.  Waiting for later ROADMAP items, each raising
+NotImplementedError: monocular (item 7), and the viewer and grid-map
+savers (item 8).
 """
 
 from __future__ import annotations
@@ -56,9 +59,6 @@ class System:
         if sensor == Sensor.MONOCULAR:
             raise NotImplementedError(
                 "the monocular System waits for ROADMAP item 7")
-        if vocabulary is not None:
-            raise NotImplementedError(
-                "the vocabulary and loop closing wait for ROADMAP item 6")
         if use_viewer:
             raise NotImplementedError("the viewer waits for ROADMAP item 8")
         self.scheduler = scheduler or settings.scheduler
@@ -67,32 +67,67 @@ class System:
         self.device = torch_device(device)
         self.settings = settings
         self.sensor = sensor
-        self.vocabulary = None
+        self.vocabulary = vocabulary
 
-        self.builder = FrameBuilder(settings, device=self.device)
+        self.builder = FrameBuilder(settings, vocabulary, device=self.device)
         n_pad = padded_total(settings.n_features, settings.n_levels,
                              settings.scale_factor)
         self.store = MapStore(n_pad, device=self.device)
-        self.local_mapper = LocalMapper(settings, sensor, self.store,
-                                        device=self.device)
+
+        self.kf_database = None
+        self.loop_closer = None
+        if vocabulary is not None:
+            from orb_slam2_tpu_torch.places.database import KeyFrameDatabase
+            from orb_slam2_tpu_torch.slam.loop_closing import LoopCloser
+
+            self.kf_database = KeyFrameDatabase(vocabulary)
+            self.store.erase_hooks.append(self.kf_database.erase)
+            self.loop_closer = LoopCloser(
+                settings, sensor, self.store, self.kf_database,
+                device=self.device,
+            )
+        self.local_mapper = LocalMapper(
+            settings, sensor, self.store, loop_closer=self.loop_closer,
+            vocabulary=vocabulary, device=self.device,
+        )
+        if self.loop_closer is not None:
+            self.loop_closer.local_mapper = self.local_mapper
+
+        relocalizer = None
+        if self.kf_database is not None:
+            from orb_slam2_tpu_torch.slam.relocalization import Relocalizer
+
+            relocalizer = Relocalizer(settings, self.store, self.kf_database,
+                                      device=self.device)
+
         self.tracker = Tracker(
             settings, sensor, self.store, self.builder,
-            local_mapper=self.local_mapper, device=self.device,
+            local_mapper=self.local_mapper,
+            kf_database=self.kf_database,
+            relocalizer=relocalizer,
+            device=self.device,
         )
 
         self._shutdown = False
         self._workers: list = []
         self._work_event = threading.Event()
-        self._worker_error: Optional[BaseException] = None
+        self._loop_event = threading.Event()
+        self._worker_error: Optional[tuple] = None   # (thread, exception)
         if self.scheduler == "async":
             # reference thread topology (src/System.cc:85-104): tracking
-            # on the caller's thread, LocalMapping on its own (the
-            # LoopClosing thread comes with the loop closer, ROADMAP item
-            # 6).  The flag lives on the mapper so it survives
-            # Tracker.reset.
+            # on the caller's thread, LocalMapping and LoopClosing each
+            # on their own, GBA spawned by LoopClosing (background_gba).
+            # The flag lives on the mapper so it survives Tracker.reset.
             self.local_mapper.async_worker = True
             self._workers.append(threading.Thread(
-                target=self._mapping_loop, daemon=True))
+                target=self._worker, args=("mapping", self._mapping_loop),
+                daemon=True))
+            if self.loop_closer is not None:
+                self.loop_closer.background_gba = True
+                self._workers.append(threading.Thread(
+                    target=self._worker,
+                    args=("loop-closing", self._loop_closing_loop),
+                    daemon=True))
             for w in self._workers:
                 w.start()
 
@@ -150,27 +185,40 @@ class System:
             self.store = self.tracker.store
         if self.scheduler == "sync":
             self.local_mapper.spin()
+            if self.loop_closer is not None:
+                self.loop_closer.spin()
         else:
             self._raise_worker_error()
             self._work_event.set()
 
-    def _mapping_loop(self):
+    def _worker(self, name, loop):
         try:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
-            while not self._shutdown:
-                self._work_event.wait(timeout=0.003)
-                self._work_event.clear()
-                self.local_mapper.spin()
+            loop()
         except BaseException as e:     # handed to the caller's thread
-            self._worker_error = e
+            self._worker_error = (name, e)
             raise
 
+    def _mapping_loop(self):
+        while not self._shutdown:
+            self._work_event.wait(timeout=0.003)
+            self._work_event.clear()
+            self.local_mapper.spin()
+            if self.loop_closer is not None and self.loop_closer.queue:
+                self._loop_event.set()
+
+    def _loop_closing_loop(self):
+        while not self._shutdown:
+            self._loop_event.wait(timeout=0.003)
+            self._loop_event.clear()
+            self.loop_closer.spin()
+
     def _raise_worker_error(self):
-        """A mapping thread that died must not pass for an idle one."""
+        """A worker thread that died must not pass for an idle one."""
         if self._worker_error is not None:
-            raise RuntimeError("the mapping thread failed") \
-                from self._worker_error
+            name, error = self._worker_error
+            raise RuntimeError(f"the {name} thread failed") from error
 
     # ------------------------------------------------------------------
     # mode switches / state (ref: src/System.cc:126-158, 286-303, 655-676)
@@ -197,7 +245,12 @@ class System:
         # in flight (ref: LocalMapping::RequestFinish + Optimizer
         # setForceStopFlag, src/LocalMapping.cc:705-757)
         self.local_mapper.request_finish()
+        lc = self.loop_closer
+        if lc is not None and lc.gba is not None and lc.gba.running:
+            lc.gba.request_stop()
+            lc.gba.wait()
         self._work_event.set()
+        self._loop_event.set()
         for w in self._workers:
             w.join(timeout=60.0)
         self._raise_worker_error()
@@ -206,17 +259,18 @@ class System:
         return self.tracker.state
 
     def stats(self) -> dict:
-        """Counters for observability (SURVEY §5.5): map size, resets,
-        relocalizations; the loop and global-BA counters stay 0 without
-        a loop closer."""
+        """Counters for observability (SURVEY §5.5): map size, loop and
+        GBA lifecycle, resets, relocalizations."""
+        lc = self.loop_closer
+        gba = lc.gba if lc is not None else None
         return {
             "keyframes": int(self.store.kf_valid.sum()),
             "map_points": int(len(self.store.valid_pt_ids())),
             "frames_tracked": len(self.tracker.trajectory),
             "big_change_idx": self.store.big_change_idx,
-            "loops_closed": 0,
-            "gba_runs_finished": 0,
-            "gba_runs_aborted": 0,
+            "loops_closed": lc.loops_closed if lc is not None else 0,
+            "gba_runs_finished": gba.runs_finished if gba is not None else 0,
+            "gba_runs_aborted": gba.runs_aborted if gba is not None else 0,
             "resets": self.tracker.resets,
             "relocalizations": self.tracker.relocalizations,
         }

@@ -85,6 +85,24 @@ def fetch_async(tree) -> None:
             fetch_async(v)
 
 
+def upload(a, device) -> torch.Tensor:
+    """A host array (or number) as a tensor on `device`: uint32
+    descriptor words as their int32 bits, float64 as float32."""
+    a = np.asarray(a)
+    if a.ndim:
+        a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(a).to(device)
+
+
+def take_row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-dim index tensor, without reading it on the host."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
 def to_numpy(x) -> np.ndarray:
     """numpy array of a HostCopy (waiting for it), a tensor or an array."""
     if isinstance(x, HostCopy):

@@ -70,7 +70,12 @@ def test_slam_modules_leave_jax_out():
     mods = ("native.obs_engine", "io.datasets", "io.trajectory",
             "apps.run_slam", "system", "slam.local_mapping",
             "slam.tracking", "slam.kf_mirror", "slam.device_map",
-            "precompile", "solvers.ba", "solvers.triangulation", "convert")
+            "precompile", "solvers.ba", "solvers.triangulation", "convert",
+            # place recognition, relocalization and loop closing
+            "places.database", "places.vocabulary", "geometry.sim3",
+            "solvers.horn", "solvers.epnp", "solvers.sim3_solver",
+            "solvers.pose_graph", "slam.relocalization",
+            "slam.loop_closing", "slam.global_ba")
     out = _run("import importlib, sys\n"
                + "".join(f"importlib.import_module('orb_slam2_tpu_torch.{m}')\n"
                          for m in mods)
@@ -80,6 +85,49 @@ def test_slam_modules_leave_jax_out():
     files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     for m in mods:
         assert m.replace(".", "/") + ".py" in files, m
+
+
+def test_every_subpackage_is_walked_and_helpers_leave_jax_out():
+    """The source rule reads every sub-package (places/ included), and
+    the helper modules under tests/ that chip_smoke.py imports load
+    without jax."""
+    subs = {p.relative_to(PKG).parts[0] for p in PKG.rglob("*.py")
+            if len(p.relative_to(PKG).parts) > 1}
+    assert {"places", "solvers", "geometry", "slam", "ops", "io", "apps",
+            "native"} <= subs
+    assert (PKG / "places" / "__init__.py").exists()
+    out = _run("import sys\n"
+               f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+               "import test_torch_ring_map, test_torch_track_blocks\n"
+               "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'orb_slam2_tpu', 'torch')))")
+    assert out.strip() == "[]", out
+
+
+@pytest.mark.parametrize("name", ["System", "run_slam", "LoopCloser",
+                                  "Relocalizer"])
+def test_entry_points_ask_for_the_card(name):
+    """Entry points default to the card or require the device by
+    keyword; none falls back to the CPU by itself."""
+    import inspect
+
+    from orb_slam2_tpu_torch.apps import run_slam
+    from orb_slam2_tpu_torch.slam.loop_closing import LoopCloser
+    from orb_slam2_tpu_torch.slam.relocalization import Relocalizer
+    from orb_slam2_tpu_torch.system import System
+
+    if name == "run_slam":
+        src = inspect.getsource(run_slam.main)
+        assert '"--device", default="cuda"' in src
+        return
+    param = inspect.signature(
+        {"System": System, "LoopCloser": LoopCloser,
+         "Relocalizer": Relocalizer}[name].__init__).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+    if name == "System":
+        assert param.default == "cuda"
+    else:
+        assert param.default is inspect.Parameter.empty
 
 
 def test_import_builds_nothing():

@@ -29,6 +29,7 @@ from orb_slam2_tpu.slam.map_store import MapStore as JMapStore
 from orb_slam2_tpu.system import System as JSystem
 from orb_slam2_tpu_torch import convert
 from orb_slam2_tpu_torch.config import Sensor, Settings
+from orb_slam2_tpu_torch.places.vocabulary import Vocabulary
 from orb_slam2_tpu_torch.slam import device_map, tracking
 from orb_slam2_tpu_torch.slam.map_store import MapStore
 from orb_slam2_tpu_torch.system import System
@@ -126,13 +127,27 @@ def test_unported_modes_raise_naming_their_item():
                  height=96, n_features=200)
     with pytest.raises(NotImplementedError, match="item 7"):
         System(s, Sensor.MONOCULAR, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        System(s, Sensor.STEREO, vocabulary=object(), device="cpu")
+    # place recognition no longer waits for an item: a vocabulary brings
+    # the database, the relocalizer and the loop closer, global BA
+    # launches (and finds nothing to do on an empty map), and the loop
+    # stage has no program to warm without a vocabulary
+    voc = Vocabulary.train(
+        np.random.default_rng(0).integers(
+            0, 2 ** 32, (300, 8), dtype=np.uint64).astype(np.uint32),
+        k=4, L=2)
+    sys_ = System(s, Sensor.STEREO, vocabulary=voc, device="cpu")
+    assert sys_.loop_closer is not None and sys_.kf_database is not None
+    assert sys_.tracker.relocalizer is not None
+    assert sys_.local_mapper.loop_closer is sys_.loop_closer
+    assert sys_.loop_closer.local_mapper is sys_.local_mapper
+    assert sys_.kf_database.erase in sys_.store.erase_hooks
+    assert sys_.loop_closer.idle()
     sys_ = System(s, Sensor.STEREO, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sys_.local_mapper.global_bundle_adjustment()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sys_.precompile(stages=["loop"])
+    assert sys_.loop_closer is None and sys_.tracker.relocalizer is None
+    assert sys_.local_mapper.global_bundle_adjustment() is False
+    assert sys_.precompile(stages=["loop"]) == {}
+    with pytest.raises(ValueError, match="stage"):
+        sys_.precompile(stages=["loops"])
     with pytest.raises(ValueError, match="scheduler"):
         System(s, Sensor.STEREO, scheduler="threads", device="cpu")
     # the pipelined path and the async scheduler no longer wait for an item
@@ -143,6 +158,12 @@ def test_unported_modes_raise_naming_their_item():
         assert sys_.poll() == 0
         sys_.shutdown()
         assert not sys_._workers[0].is_alive()
+    # with a vocabulary the loop closer gets the second worker thread
+    sys_ = System(s, Sensor.STEREO, vocabulary=voc, scheduler="async",
+                  device="cpu")
+    assert len(sys_._workers) == 2 and sys_.loop_closer.background_gba
+    sys_.shutdown()
+    assert not any(w.is_alive() for w in sys_._workers)
 
 
 # ---------------------------------------------------------------------------
@@ -717,7 +738,8 @@ def test_precompile_runs_every_program_and_leaves_the_system_fresh(sensor):
         "track/mirror_deltas", "modular/optimize_pose",
         "modular/project+search_local", "modular/search_last_frame",
         "mapping/triangulate_gather", "mapping/fuse_points_gather",
-        "mapping/fuse_points", "mapping/local_ba_chain"}
+        "mapping/fuse_points", "mapping/local_ba_chain",
+        "gba/global_ba"}
     assert all(isinstance(v, float) and v >= 0 for v in out.values())
     assert sys_.builder._next_id == 0 and sys_.store.n_pt == 0
     t = sys_.tracker
@@ -837,3 +859,32 @@ def test_a_failed_mapping_thread_is_reported_to_the_caller():
         sys_._pump()
     with pytest.raises(RuntimeError, match="mapping thread failed"):
         sys_.shutdown()
+
+
+def test_a_failed_loop_closing_thread_is_reported_to_the_caller():
+    s = Settings(fx=100.0, fy=100.0, cx=64, cy=48, bf=50.0, width=128,
+                 height=96, n_features=200, n_levels=4)
+    voc = Vocabulary.train(
+        np.random.default_rng(0).integers(
+            0, 2 ** 32, (300, 8), dtype=np.uint64).astype(np.uint32),
+        k=4, L=2)
+    sys_ = System(s, Sensor.STEREO, vocabulary=voc, scheduler="async",
+                  device="cpu")
+
+    def boom():
+        raise ValueError("closer broke")
+
+    sys_.loop_closer.process_one = boom
+    hook, threading.excepthook = threading.excepthook, lambda args: None
+    try:
+        sys_.loop_closer.queue.append(0)
+        sys_._pump()          # wakes the mapper, which wakes the closer
+        sys_._workers[1].join(timeout=10)
+    finally:
+        threading.excepthook = hook
+    assert not sys_._workers[1].is_alive()
+    with pytest.raises(RuntimeError, match="loop-closing thread failed"):
+        sys_._pump()
+    with pytest.raises(RuntimeError, match="loop-closing thread failed"):
+        sys_.shutdown()
+    assert not sys_._workers[0].is_alive()
