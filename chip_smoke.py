@@ -133,6 +133,42 @@ there is no CUDA device or any phase fails.  Phases:
                  with the vocabulary, three threads on the card: 8c's
                  gates, two workers, shutdown() returns within its timeout.
 
+  10. mono  monocular SLAM at the KITTI shape (KITTI 00-02's monocular
+             settings: the same camera, 2000 features):
+             (a) the H/F initializer on the card against the port's own CPU
+                 run on seeded matches at KITTI intrinsics (N = 2048 and
+                 4096, an init attempt's rows; 30% outliers): a general scene (F chosen), a plane (H
+                 chosen) and a pure rotation (must fail): the same success
+                 and model, R21 within 1e-3, t21 direction cos >= 0.9999,
+                 good_mask equal on >= 99% of rows; search_for_initialization
+                 on two rendered frames' init-budget features: idx and ok
+                 equal; the ms of each by CUDA events;
+             (b) FAST and describe at the init budget (4000 features, 4096
+                 rows) on 5 rendered frames against their plain versions
+                 with phase 2's gates; FrameBuilder.monocular with and
+                 without init_boost: xy / octave / valid equal to the plain
+                 path, exactly one FAST and one describe launch an image and
+                 no stereo launch;
+             (c) after a mono init through System, the fused mono step
+                 (build_track_step(..., "mono")) replayed as a CUDA graph on
+                 the next 8 frames: replay == eager (Tcw within 1e-5, assign
+                 and inliers equal), kernel path == plain path (Tcw within
+                 1e-4), a profiled replay runs 1 FAST, 1 describe and 0
+                 stereo kernels; its node count beside phase 6's;
+             (d) bench.py's mono pass (bench.py:304-336) through
+                 System(MONOCULAR, vocabulary, scheduler="async") with
+                 settings.pipelined asked for and demoted, after
+                 System.precompile(): circle_trajectory(720, 3 m, 3 pi),
+                 0.75 deg a frame, paced at 10 Hz with prefetch between
+                 frames; healthy by bench.py's rule (final state OK, >= 3
+                 keyframes, no reset, a loop closed or the Sim3-aligned
+                 keyframe ATE <= 0.5 m), no capture after precompile; the
+                 init frame and its ms by stage, frame ms p50 / p90 / worst,
+                 keyframes, loops, ATE;
+             (e) the grid mapper attached before (d)'s first frame: free
+                 and occupied cells, a closed loop rebuilds it,
+                 save_grid_map_tum writes the 450x300 file.
+
 Every phase's seconds and the whole script's are printed.  `--phases`
 (e.g. `--phases 9`) runs the build and only the named phases, for
 development: the kernels line is then left out.  The last line is
@@ -146,6 +182,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # torch.profiler leaves its CUPTI callbacks attached after a profiled call,
@@ -251,6 +288,18 @@ LOOP_MAX_ATE_M = 0.5           # bench.py's drift-corrected bound
 RING_KEYFRAMES = 300
 RING_MAX_TAIL_ERR_M = 1.0
 SHUTDOWN_MAX_S = 60.0
+
+# the mono phase: bench.py's mono pass, 720 frames of the 1.5-orbit
+# circuit (0.75 deg a frame), KITTI 00-02's monocular settings
+MONO_FRAMES = 720
+MONO_INIT_ROWS = 4096          # padded_total(2 * N_FEATURES): init frames
+MONO_MATCH_ROWS = (2048, MONO_INIT_ROWS)   # the initializer's test rows
+MONO_OUTLIERS = 0.3
+MONO_R_ATOL = 1e-3
+MONO_T_MIN_COS = 0.9999
+N_MONO_TRACK = 8               # fast-path frames after the init
+MONO_GRID_CELLS_PER_UNIT = 20.0
+MONO_GRID_HALF = 5.0           # the grid's half width in map units
 
 
 def check(cond: bool, what: str) -> None:
@@ -1762,7 +1811,498 @@ def places_phase(torch, np, dev, settings, scene, gpu) -> dict:
     print("[places] seconds: "
           + ", ".join(f"{k} {v:.1f}" for k, v in spans.items()))
     return {"launches": launches, "reloc": reloc, "loop": loop,
-            "ring": ring, "async": run}
+            "ring": ring, "async": run, "voc": voc}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: monocular SLAM through the normal entry points
+# ---------------------------------------------------------------------------
+def _two_view_scene(np, rng, kind: str, n: int):
+    """Matches of two KITTI-intrinsics views: a general scene (F), a plane
+    (H) or a pure rotation (no parallax).  Rays through pixels spread over
+    the image meet a depth in [3, 15] m or the plane z = 8 + 0.2 x; the
+    second camera turns by ~3 deg and moves 1 m sideways; 0.25 px of
+    noise; MONO_OUTLIERS of the rows replaced by random pixels; rows
+    outside either image masked.  (With KITTI's 376-px-high image the
+    200-set 8-point RANSAC needs that much motion and that little noise
+    to be well posed at 30% outliers.)"""
+    from scipy.spatial.transform import Rotation
+
+    ray = np.stack([(rng.uniform(0, W, n) - CX) / FX,
+                    (rng.uniform(0, H, n) - CY) / FY, np.ones(n)], -1)
+    z = (8.0 / (1.0 - 0.2 * ray[:, 0]) if kind == "planar"
+         else rng.uniform(3, 15, n))
+    pts = ray * z[:, None]
+    R = Rotation.from_rotvec(rng.normal(0, np.radians(3.0), 3)).as_matrix()
+    t = (np.zeros(3) if kind == "rotation"
+         else np.array([1.0, 0.05, 0.05]))
+
+    def px(pc):
+        return np.stack([FX * pc[:, 0] / pc[:, 2] + CX,
+                         FY * pc[:, 1] / pc[:, 2] + CY], -1)
+
+    uv1 = px(pts) + rng.normal(0, 0.25, (n, 2))
+    uv2 = px(pts @ R.T + t) + rng.normal(0, 0.25, (n, 2))
+    out = rng.choice(n, int(MONO_OUTLIERS * n), replace=False)
+    uv2[out] = rng.uniform((0, 0), (W, H), (len(out), 2))
+    mask = ((uv1 >= 0) & (uv1 < (W, H)) & (uv2 >= 0)
+            & (uv2 < (W, H))).all(1)
+    return (uv1.astype(np.float32), uv2.astype(np.float32), mask, R,
+            t / max(np.linalg.norm(t), 1e-12))
+
+
+def mono_init_check(torch, np, dev, settings, scene, poses, gpu) -> dict:
+    """Phase 10a: the H/F initializer and the init matcher on the card
+    against the port's own CPU run on the same inputs."""
+    from orb_slam2_tpu_torch.ops import matching
+    from orb_slam2_tpu_torch.slam.frame import FrameBuilder
+    from orb_slam2_tpu_torch.solvers import initializer
+
+    cpu = torch.device("cpu")
+    K = settings.K.astype(np.float32)
+    rng = np.random.default_rng(10)
+    times = {}
+    expect = {"general": (True, False), "planar": (True, True),
+              "rotation": (False, None)}
+    cases = [(kind, n) for n in MONO_MATCH_ROWS for kind in expect]
+    for kind, n in cases:
+        want_ok, want_h = expect[kind]
+        uv1, uv2, mask, R, t = _two_view_scene(np, rng, kind, n)
+        rows = np.nonzero(mask)[0]
+        samples = rows[initializer.make_ransac_samples(
+            len(rows), np.random.default_rng(0))].astype(np.int32)
+
+        def args(d):
+            return [torch.from_numpy(a).to(d) for a in (uv1, uv2, mask, K,
+                                                        samples)]
+
+        a_dev, a_cpu = args(dev), args(cpu)
+        card = initializer.initialize(*a_dev)
+        host = initializer.initialize(*a_cpu)
+        c = {k: v.cpu().numpy() for k, v in card._asdict().items()}
+        h = {k: v.numpy() for k, v in host._asdict().items()}
+        check(bool(c["success"]) == bool(h["success"]) == want_ok,
+              f"init {kind}: success card {c['success']} cpu {h['success']}")
+        check(bool(c["used_homography"]) == bool(h["used_homography"]),
+              f"init {kind}: the card and the CPU chose different models")
+        line = {"scene": kind, "rows": n,
+                "valid_rows": int(mask.sum()), "success": bool(c["success"]),
+                "used_homography": bool(c["used_homography"])}
+        if want_ok:
+            check(bool(c["used_homography"]) == want_h,
+                  f"init {kind}: used_homography {c['used_homography']}")
+            dR = float(np.abs(c["R21"] - h["R21"]).max())
+            cos = float(c["t21"] @ h["t21"] / max(
+                np.linalg.norm(c["t21"]) * np.linalg.norm(h["t21"]), 1e-12))
+            share = float((c["good_mask"] == h["good_mask"]).mean())
+            truth_R = float(np.abs(c["R21"] - R).max())
+            truth_cos = float(abs(c["t21"] @ t) / max(
+                np.linalg.norm(c["t21"]), 1e-12))
+            check(dR <= MONO_R_ATOL, f"init {kind}: R21 card vs CPU {dR}")
+            check(cos >= MONO_T_MIN_COS, f"init {kind}: t21 cos {cos}")
+            check(share >= MASK_MIN_SHARE,
+                  f"init {kind}: good_mask agrees on {share}")
+            line.update(R21_card_vs_cpu=dR, t21_cos_card_vs_cpu=cos,
+                        good_mask_share=share,
+                        n_good=int(c["good_mask"].sum()),
+                        R21_vs_truth=truth_R, t21_cos_vs_truth=truth_cos)
+        line["card_ms"] = times[f"initialize_{kind}_{n}"] = cuda_ms(
+            torch, lambda: initializer.initialize(*a_dev), 3, 3)
+        print(f"[mono] 10a initialize: {json.dumps(line)}")
+
+    # the init matcher on two rendered frames' init-budget features
+    builder = FrameBuilder(settings, device=dev)
+    f0, f1 = [builder.monocular(scene.render(poses[i]).astype(np.uint8),
+                                0.1 * i, init_boost=True).feats
+              for i in (0, 2)]
+    keys = ("xy", "desc", "octave", "angle", "valid")
+    a_dev = [f.device(k) for f in (f0, f1) for k in keys]
+    card = matching.to_host(matching.search_for_initialization(*a_dev))
+    host = matching.to_host(matching.search_for_initialization(
+        *[a.cpu() for a in a_dev]))
+    ok = host[2]
+    check(ok.sum() >= 100, f"init matcher: {int(ok.sum())} matches")
+    check(np.array_equal(card[2], ok) and np.array_equal(card[0][ok],
+                                                         host[0][ok])
+          and np.array_equal(card[1][ok], host[1][ok]),
+          "init matcher: the card's idx / ok differ from the CPU's")
+    times["search_for_initialization"] = cuda_ms(
+        torch, lambda: matching.search_for_initialization(*a_dev), 5, 3)
+    print(f"[mono] 10a search_for_initialization: {f0.n} x {f1.n} rows, "
+          f"{int(ok.sum())} matches, idx/ok equal to the CPU's, "
+          f"{times['search_for_initialization']:.3f} ms on the card")
+    return times
+
+
+def mono_kernel_check(torch, np, dev, settings, scene, poses) -> dict:
+    """Phase 10b: FAST and describe at the init budget against their plain
+    versions, FrameBuilder.monocular with and without init_boost against
+    the plain path, and the launches a mono image makes."""
+    from orb_slam2_tpu_torch.ops import (
+        fast, fast_cuda, frontend, gaussian, orb_cuda, pyramid, stereo_cuda,
+    )
+    from orb_slam2_tpu_torch.slam.frame import FrameBuilder
+
+    n_init = 2 * N_FEATURES
+    border = frontend.EDGE_THRESHOLD - 3
+    budgets = frontend.level_budgets(n_init, 8, settings.scale_factor)
+    n_rows = frontend.padded_total(n_init, 8, settings.scale_factor)
+    imgs = [scene.render(poses[i]).astype(np.uint8)
+            for i in range(0, len(poses), len(poses) // N_PAIRS)][:N_PAIRS]
+    ang_err, n_same, n_valid = 0.0, 0, 0
+    for img in imgs:
+        levels = pyramid.compute_pyramid(torch.from_numpy(img).to(dev), 8,
+                                         settings.scale_factor)
+        kmaps = fast_cuda.detect_levels_cuda(levels, 20, 7, border)
+        pmaps = fast_cuda.detect_levels_plain(levels, 20, 7, border)
+        for l, (k, p) in enumerate(zip(kmaps, pmaps)):
+            check(torch.equal(k, p), f"mono FAST map differs at level {l}")
+        picks = [fast.select_topk_grid(p, b, 24)
+                 for p, b in zip(pmaps, budgets)]
+        xys, _, valids = zip(*picks)
+        blurred = [gaussian.blur7x7(lv) for lv in levels]
+        ka, kd = orb_cuda.describe_levels_cuda(levels, blurred, xys, valids,
+                                               n_rows)
+        pa, pd = orb_cuda.describe_levels_plain(levels, blurred, xys, valids,
+                                                n_rows)
+        valid = torch.cat([*valids, valids[0].new_zeros(n_rows
+                                                        - sum(budgets))])
+        ang_err = max(ang_err, float(circ_diff(ka, pa)[valid].max()))
+        n_same += int((kd == pd).all(1)[valid].sum())
+        n_valid += int(valid.sum())
+    share = n_same / max(n_valid, 1)
+    print(f"[mono] 10b at the init budget ({n_init} features, {n_rows} rows,"
+          f" budgets {budgets}): FAST maps equal on {len(imgs)} images; "
+          f"max angle err {ang_err:.3g} deg; descriptors identical on "
+          f"{n_same}/{n_valid} = {100 * share:.3f}% of valid keypoints")
+    check(ang_err <= ANGLE_ATOL_DEG, f"mono angle error {ang_err} deg")
+    check(share >= DESC_MIN_SHARE, f"mono descriptor share {share}")
+
+    fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
+    builder = FrameBuilder(settings, device=dev)
+    frames = [(builder.monocular(img, 0.1 * i, init_boost=b).feats, b)
+              for i, img in enumerate(imgs) for b in (True, False)]
+    torch.cuda.synchronize()
+    launches = {"fast": fast_cuda.launches, "orb": orb_cuda.launches,
+                "stereo": stereo_cuda.launches}
+    want = {"fast": len(frames), "orb": len(frames), "stereo": 0}
+    check(launches == want, f"mono launches {launches}, expected {want}")
+    plain = FrameBuilder(settings, device=dev, plain=True)
+    for i, (f, b) in enumerate(frames):
+        p = plain.monocular(imgs[i // 2], 0.0, init_boost=b).feats
+        check(f.n == p.n == (n_rows if b else frontend.padded_total(
+            N_FEATURES, 8, settings.scale_factor)), f"mono rows {f.n}")
+        for k in ("xy", "octave", "valid"):
+            check(np.array_equal(getattr(f, k), getattr(p, k)),
+                  f"mono frame {i // 2} (init_boost={b}): {k} differs from "
+                  "the plain path")
+    print(f"[mono] 10b FrameBuilder.monocular with and without init_boost: "
+          f"xy / octave / valid equal to the plain path on {len(imgs)} "
+          f"images; launches {launches} for {len(frames)} frames")
+    return launches
+
+
+def mono_track_check(torch, np, dev, settings, scene, poses,
+                     stereo_nodes) -> dict:
+    """Phase 10c: after a mono init through System, the fused mono step's
+    graph replays against its eager and plain versions on the frames that
+    follow, and what one replay runs."""
+    from orb_slam2_tpu_torch import convert
+    from orb_slam2_tpu_torch.config import Sensor
+    from orb_slam2_tpu_torch.ops import frontend
+    from orb_slam2_tpu_torch.slam import track_step
+    from orb_slam2_tpu_torch.system import System
+
+    system = System(settings, Sensor.MONOCULAR, device=dev)
+    tracker = system.tracker
+    step = tracker._get_fast_step()
+    recorded = []
+
+    def keep(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        return None if a is None else np.array(a, copy=True)
+
+    def recording(*args):
+        kept = [keep(a) for a in args]
+        out = step(*args)
+        recorded.append((kept, out.f32_pack.clone(), out.desc.clone()))
+        return out
+
+    tracker._fast_step = recording
+    init_at = None
+    for i, T in enumerate(poses):
+        system.track_monocular(scene.render(T).astype(np.uint8), 0.1 * i)
+        if init_at is None and tracker.state.name == "OK":
+            init_at = i
+        if len(recorded) >= N_MONO_TRACK:
+            break
+    check(len(recorded) == N_MONO_TRACK and tracker.state.name == "OK",
+          f"mono: {len(recorded)} fast-path frames after the init at frame "
+          f"{init_at}, state {tracker.state.name}")
+    n_feat = frontend.padded_total(N_FEATURES, 8, settings.scale_factor)
+    plain = track_step.build_track_step(system.settings, "mono", device=dev,
+                                        plain=True).eager
+    worst = {"replay_tcw": 0.0, "plain_tcw": 0.0}
+    widths = []
+    for k, (args, pack, desc) in enumerate(recorded):
+        M = args[7].shape[0]
+        widths.append(int(args[3].shape[0]))
+        dev_args = [None if a is None else
+                    torch.as_tensor(track_step._as_input(a)).to(dev)
+                    for a in args]
+        res, _ = track_step.unpack_track_out(
+            track_step.TrackOut(pack, desc), n_feat, M)
+        e = convert.track_result_to_numpy(step.eager(*dev_args), n_feat, M)
+        p = convert.track_result_to_numpy(plain(*dev_args), n_feat, M)
+        d_replay = float(np.abs(e["Tcw"] - res.Tcw).max())
+        d_plain = float(np.abs(p["Tcw"] - e["Tcw"]).max())
+        worst["replay_tcw"] = max(worst["replay_tcw"], d_replay)
+        worst["plain_tcw"] = max(worst["plain_tcw"], d_plain)
+        check(d_replay <= REPLAY_TCW_ATOL,
+              f"mono frame {k}: replay and eager Tcw differ by {d_replay}")
+        for key in ("assign", "inlier"):
+            check(np.array_equal(e[key], getattr(res, key)),
+                  f"mono frame {k}: replay and eager {key} differ")
+        check(d_plain <= PLAIN_TCW_ATOL,
+              f"mono frame {k}: kernel and plain Tcw differ by {d_plain}")
+    prof = profile_call(torch, lambda: step(*recorded[-1][0]))
+    want = {"fast": 1, "orb": 1, "stereo": 0}
+    check(prof["counts"] == want,
+          f"mono replay ran {prof['counts']}, expected {want}")
+    out = {"init_frame": init_at, "frames": N_MONO_TRACK,
+           "last_block_rows": widths, "replay_vs_eager_tcw":
+           worst["replay_tcw"], "plain_vs_kernel_tcw": worst["plain_tcw"],
+           "replay_kernels": prof["counts"],
+           "replay_nodes": prof["n_device"],
+           "stereo_replay_nodes": stereo_nodes,
+           "replay_busy_ms": prof["busy_ms"], "captures": step.captures}
+    print(f"[mono] 10c {json.dumps(out)}")
+    system.shutdown()
+    return out
+
+
+def umeyama_ate(np, store, poses) -> float:
+    """bench.py's mono keyframe ATE (kf_ate with mono_scale): keyframe
+    centres against the rendered trajectory after a similarity alignment
+    (rotation by SVD, scale as the median ratio of centred norms)."""
+    T0 = poses[0]
+    est, gt = [], []
+    for k in store.valid_kf_ids():
+        i = int(round(store.kf_timestamp[int(k)] / FRAME_PERIOD_S))
+        if i >= len(poses):
+            continue
+        Tg = poses[i] @ np.linalg.inv(T0)
+        Te = store.kf_pose[int(k)]
+        est.append(-Te[:3, :3].T @ Te[:3, 3])
+        gt.append(-Tg[:3, :3].T @ Tg[:3, 3])
+    est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
+    if len(est) < 3:
+        return float("inf")
+    me, mg = est.mean(0), gt.mean(0)
+    ec, gc = est - me, gt - mg
+    ne = np.linalg.norm(ec, axis=1)
+    keep = ne > 1e-6
+    if keep.sum() >= 3:
+        U, _, Vt = np.linalg.svd(ec.T @ gc)
+        Ra = (U @ Vt).T
+        if np.linalg.det(Ra) < 0:
+            U[:, -1] *= -1
+            Ra = (U @ Vt).T
+        sc = np.median(np.linalg.norm(gc[keep], axis=1) / ne[keep])
+        est = (ec @ Ra.T) * sc + mg
+        gt = gc + mg
+    return float(np.sqrt(((est - gt) ** 2).sum(1).mean()))
+
+
+def mono_bench_run(torch, np, dev, settings, poses, frames, voc,
+                   gpu) -> dict:
+    """Phases 10d and 10e: bench.py's mono pass (bench.py:304-336) on the
+    port through System, with the fork's grid mapper attached before the
+    first frame.  Returns the wrappers' launch counts over the pass."""
+    import copy
+
+    from orb_slam2_tpu_torch.config import Sensor
+    from orb_slam2_tpu_torch.mapping2d.gridmap import GridParams
+    from orb_slam2_tpu_torch.mapping2d.stream import attach_grid_mapper
+    from orb_slam2_tpu_torch.ops import fast_cuda, orb_cuda, stereo_cuda
+    from orb_slam2_tpu_torch.system import System
+
+    s = copy.copy(settings)
+    s.pipelined = True        # bench.py asks; the mono System demotes it
+    system = System(s, Sensor.MONOCULAR, vocabulary=voc, scheduler="async",
+                    device=dev)
+    tracker, mapper, closer = (system.tracker, system.local_mapper,
+                               system.loop_closer)
+    check(system.settings.pipelined is False and not tracker.pipelined
+          and s.pipelined is True, "mono System did not demote pipelined")
+    check(system.store.n_feat == MONO_INIT_ROWS,
+          f"mono store of {system.store.n_feat} rows")
+    grid, _ = attach_grid_mapper(system, GridParams(
+        scale_factor=MONO_GRID_CELLS_PER_UNIT, cloud_min_x=-MONO_GRID_HALF,
+        cloud_max_x=MONO_GRID_HALF, cloud_min_z=-MONO_GRID_HALF,
+        cloud_max_z=MONO_GRID_HALF), all_pts_gap=0)
+    rebuilds = []
+    rebuild = grid.rebuild
+
+    def counted_rebuild():
+        rebuilds.append(closer.loops_closed)
+        rebuild()
+
+    grid.rebuild = counted_rebuild
+    pre = system.precompile()
+    check({"modular/mono_init", "track/fast_step", "mapping/kf_bow_descend"}
+          <= set(pre) and "track/chain_step" not in pre,
+          f"mono precompile ran {sorted(pre)}")
+    step = tracker._get_fast_step()
+    captures0 = step.captures
+
+    fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
+    frame_ms, init_at, init_ms = [], None, {}
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    t_next = t_start
+    for i, img in enumerate(frames):
+        while True:
+            left = t_next - time.perf_counter()
+            if left <= 0:
+                break
+            system.poll()
+            time.sleep(min(left, 0.002))
+        t_next = max(t_next + FRAME_PERIOD_S, time.perf_counter())
+        t0 = time.perf_counter()
+        system.track_monocular(img, FRAME_PERIOD_S * i)
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        if i + 1 < len(frames):
+            system.prefetch(frames[i + 1])
+        if init_at is None and tracker.state.name == "OK":
+            init_at = i
+            init_ms = {k: round(1e3 * tracker.timers.samples[k][-1], 2)
+                       for k in ("init/search", "init/initialize",
+                                 "init/create_map", "init/global_ba",
+                                 "init/normalize")}
+            init_ms["attempts"] = tracker.timers.counts["init/initialize"]
+    wall = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    while not (mapper.idle() and (closer is None or closer.idle())):
+        check(time.perf_counter() - t0 < QUIESCE_MAX_S,
+              "mono: the workers never quiesced")
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    launches = {"fast": fast_cuda.launches, "orb": orb_cuda.launches,
+                "stereo": stereo_cuda.launches}
+    captures = step.captures - captures0
+    grew = tracker._buckets("local", 1) > system.settings.bucket_local
+    state, resets = tracker.state.name, tracker.resets
+    system.shutdown()
+    store = system.store
+    check_store_invariants(np, store)
+    n_kf = int(store.kf_valid.sum())
+    loops = closer.loops_closed
+    ate = umeyama_ate(np, store, poses)
+    timed = sorted(frame_ms)
+    out = {
+        "metric": "mono_pass", "frames": len(frames),
+        "deg_per_frame": float(np.degrees(3 * np.pi / len(frames))),
+        "paced_hz": 1 / FRAME_PERIOD_S, "wall_s": wall,
+        "init_frame": init_at, "init_frame_ms": (frame_ms[init_at]
+                                                 if init_at is not None
+                                                 else None),
+        "init_stage_ms": init_ms,
+        "frame_ms_p50": timed[len(timed) // 2],
+        "frame_ms_p90": timed[int(0.9 * len(timed))],
+        "frame_ms_worst": timed[-1],
+        "worst_frame": int(np.argmax(frame_ms)),
+        "keyframes": n_kf, "map_points": int(len(store.valid_pt_ids())),
+        "loops_closed": loops, "kf_ate_m": ate, "state": state,
+        "resets": resets, "relocalizations": tracker.relocalizations,
+        "captures_after_precompile": captures, "local_bucket_grew": grew,
+        "launches": launches, "precompile_s": pre, "gpu": gpu,
+    }
+    print(f"[mono] 10d {json.dumps(out)}")
+    print("[mono] 10d tracker stage timers:\n" + tracker.timers.report())
+    print("[mono] 10d mapper stage timers:\n" + mapper.timers.report())
+    # bench.py's health rule (bench.py:250-259)
+    check(state == "OK" and resets == 0,
+          f"mono pass ended {state} after {resets} resets")
+    check(n_kf >= MIN_KEYFRAMES, f"mono pass: {n_kf} keyframes")
+    check(loops >= 1 or ate <= LOOP_MAX_ATE_M,
+          f"mono pass: no loop closed and keyframe ATE {ate} m")
+    check(init_at is not None, "mono pass never initialized")
+    check(captures == 0, f"mono pass: {captures} captures after precompile "
+          f"(local bucket grew: {grew})")
+    for name in ("fast", "orb"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+              "mono pass")
+    check(launches["stereo"] == 0, "the mono pass launched the stereo "
+          "refinement")
+
+    # 10e: the grid map the stream kept
+    occ = grid.occupancy()
+    n_free, n_occ = int((occ == 255).sum()), int((occ == 0).sum())
+    check(n_free > 0 and n_occ > 0,
+          f"grid: {n_free} free and {n_occ} occupied cells")
+    if loops:
+        check(len(rebuilds) >= 1 and rebuilds[0] >= 1,
+              f"grid: {len(rebuilds)} rebuilds after {loops} loops")
+    else:
+        # no loop closed (the pass was healthy by its ATE): fire the loop
+        # hook as the loop closer does, and the grid must rebuild
+        for cb in closer.on_loop:
+            cb(int(store.valid_kf_ids()[-1]))
+        check(len(rebuilds) == 1, "grid: the loop hook did not rebuild")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grid_tum.pgm")
+        system.save_grid_map_tum(path)
+        with open(path) as f:
+            head = [f.readline().strip() for _ in range(3)]
+    check(head == ["P2", "450 300", "255"], f"grid file header {head}")
+    print(f"[mono] 10e grid {occ.shape}: {n_free} free, {n_occ} occupied, "
+          f"{int((occ == 128).sum())} unknown cells; {len(rebuilds)} "
+          f"rebuilds ({loops} loops closed); save_grid_map_tum wrote a "
+          f"{head[1]} file")
+    out["grid"] = {"free": n_free, "occupied": n_occ,
+                   "rebuilds": len(rebuilds)}
+    return out
+
+
+def mono_phase(torch, np, dev, settings, scene, gpu, track, voc) -> dict:
+    """Phase 10: monocular SLAM at the KITTI shape."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from synthetic import circle_trajectory
+
+    spans = {}
+
+    def timed(name, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spans[name] = time.perf_counter() - t0
+        return out
+
+    poses = circle_trajectory(MONO_FRAMES, orbit_r=3.0,
+                              total_angle=3 * np.pi)
+
+    def render(T):
+        return scene.render(T).astype(np.uint8)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        frames = timed("render", lambda: list(pool.map(render, poses)))
+    if voc is None:
+        voc = timed("vocabulary", train_vocabulary, torch, np, dev, scene)
+    init = timed("10a init", mono_init_check, torch, np, dev, settings,
+                 scene, poses, gpu)
+    kern = timed("10b kernels", mono_kernel_check, torch, np, dev,
+                 settings, scene, poses)
+    trk = timed("10c track", mono_track_check, torch, np, dev, settings,
+                scene, poses, track["replay_nodes"])
+    run = timed("10d-e pass", mono_bench_run, torch, np, dev, settings,
+                poses, frames, voc, gpu)
+    print("[mono] seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in spans.items()))
+    return {"launches": run["launches"], "init_ms": init,
+            "builder_launches": kern, "track": trk, "run": run}
 
 
 def alternate(fns: dict, timer, rounds: int = 4) -> dict:
@@ -2182,7 +2722,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="", help="comma-separated subset of "
-                    "front,6,7,8,9 for development (default: all)")
+                    "front,6,7,8,9,10 for development (default: all)")
     only = {p for p in ap.parse_args(argv).phases.split(",") if p}
     t_script = time.perf_counter()
     spans = {}
@@ -2247,9 +2787,13 @@ def main(argv=None) -> int:
         if "8" in only:
             phase("8 pipeline", pipeline_phase, torch, np, dev, settings,
                   scene, gpu, track, system)
+        voc = None
         if "9" in only:
-            phase("9 places", places_phase, torch, np, dev, settings, scene,
-                  gpu)
+            voc = phase("9 places", places_phase, torch, np, dev, settings,
+                        scene, gpu)["voc"]
+        if "10" in only:
+            phase("10 mono", mono_phase, torch, np, dev, settings, scene,
+                  gpu, track, voc)
         print(f"[phase] seconds: {spans}; whole script "
               f"{time.perf_counter() - t_script:.1f} s")
         print(gpu)
@@ -2281,6 +2825,10 @@ def main(argv=None) -> int:
     # ---- 9. place recognition, relocalization, loop closing ---------------
     places = phase("9 places", places_phase, torch, np, dev, settings,
                    scene, gpu)
+
+    # ---- 10. monocular SLAM: initializer, mono step, bench's mono pass ------
+    mono = phase("10 mono", mono_phase, torch, np, dev, settings, scene,
+                 gpu, track, places["voc"])
     meta = {
         "fast": ("fast_detect_with_fallback", "orb_slam2_tpu_torch/csrc/fast.cu",
                  "orb_slam2_tpu/ops/fast_pallas.py:137", front["errs"]["fast"],
@@ -2313,6 +2861,7 @@ def main(argv=None) -> int:
              "launches_system": system["launches"][key],
              "launches_pipeline": pipeline["launches"][key],
              "launches_places": places["launches"][key],
+             "launches_mono": mono["launches"][key],
              "bound_work": work, "per": per}
         if "kernel_8" in t:
             k["ms_8_launches"] = t["kernel_8"]

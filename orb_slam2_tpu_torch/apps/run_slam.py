@@ -6,16 +6,20 @@ Each driver loads a sequence, runs SLAM per frame, prints the
 median/mean tracking time like the reference (stereo_kitti.cc:114-122),
 and saves trajectories.
 
-Port of orb_slam2_tpu/apps/run_slam.py: stereo_kitti, with --scheduler,
+Port of orb_slam2_tpu/apps/run_slam.py, with --device, --scheduler,
 --pipelined and --vocabulary (an ORBvoc.txt-format file: relocalization,
-loop closing and global BA).  The other entries and the --grid-map /
---ar / --viewer options wait for ROADMAP items 7-8 and raise
-NotImplementedError naming theirs.
+loop closing and global BA).  The --ar and --viewer options wait for
+ROADMAP item 8 and raise NotImplementedError naming it.
 
 Usage:
+  python -m orb_slam2_tpu_torch.apps.run_slam mono_tum SETTINGS.yaml SEQ_DIR
+  python -m orb_slam2_tpu_torch.apps.run_slam mono_kitti SETTINGS.yaml SEQ_DIR
+  python -m orb_slam2_tpu_torch.apps.run_slam mono_euroc SETTINGS.yaml CAM0 TIMES
   python -m orb_slam2_tpu_torch.apps.run_slam stereo_kitti SETTINGS.yaml SEQ_DIR
+  python -m orb_slam2_tpu_torch.apps.run_slam stereo_euroc SETTINGS.yaml CAM0 CAM1 TIMES
+  python -m orb_slam2_tpu_torch.apps.run_slam rgbd_tum SETTINGS.yaml SEQ_DIR ASSOC
 Options: --device cuda|cpu  --vocabulary VOC.txt  --out PREFIX
-         --max-frames N  --localization  --save-map PATH
+         --max-frames N  --localization  --grid-map PGM  --save-map PATH
          --scheduler sync|async  --pipelined
 """
 
@@ -28,11 +32,8 @@ from orb_slam2_tpu_torch.config import Sensor, Settings
 from orb_slam2_tpu_torch.io import datasets
 from orb_slam2_tpu_torch.system import System
 
-# what each unported driver and option waits for
-_LATER = {
-    "mono_tum": 7, "mono_kitti": 7, "mono_euroc": 7, "stereo_euroc": 8,
-    "rgbd_tum": 8, "grid_map": 8, "ar": 8, "viewer": 8,
-}
+# what each unported option waits for
+_LATER = {"ar": 8, "viewer": 8}
 
 
 def _later(what: str):
@@ -42,8 +43,8 @@ def _later(what: str):
 
 def _build_system(args, sensor: Sensor) -> System:
     settings = Settings.from_yaml(args.settings)
-    for opt in ("viewer", "ar", "grid_map"):
-        if getattr(args, opt) not in (None, False):
+    for opt in _LATER:
+        if getattr(args, opt) is not None:
             _later(opt)
     if args.pipelined:
         settings.pipelined = True
@@ -67,6 +68,8 @@ def _finish(sys_: System, args, times):
     sys_.save_trajectory_tum(prefix + "_CameraTrajectory_TUM.txt")
     sys_.save_keyframe_trajectory_tum(prefix + "_KeyFrameTrajectory_TUM.txt")
     sys_.save_trajectory_kitti(prefix + "_CameraTrajectory_KITTI.txt")
+    if args.grid_map:
+        sys_.save_grid_map_tum(args.grid_map)
     if args.save_map:
         sys_.save_map(args.save_map)
     sys_.shutdown()
@@ -113,11 +116,33 @@ def main(argv=None):
         from orb_slam2_tpu_torch import logs
         logs.set_verbose()
 
-    if args.driver != "stereo_kitti":
-        _later(args.driver)
-    seq = datasets.load_kitti_stereo(args.paths[0])
-    sensor = Sensor.STEREO
-    frames = seq.frames_stereo()
+    d = args.driver
+    if d == "mono_tum":
+        seq = datasets.load_tum_mono(args.paths[0])
+        sensor = Sensor.MONOCULAR
+        frames = seq.frames_mono()
+    elif d == "mono_kitti":
+        seq = datasets.load_kitti_mono(args.paths[0])
+        sensor = Sensor.MONOCULAR
+        frames = seq.frames_mono()
+    elif d == "mono_euroc":
+        seq = datasets.load_euroc_stereo(
+            args.paths[0], args.paths[0], args.paths[1])
+        sensor = Sensor.MONOCULAR
+        frames = seq.frames_mono()
+    elif d == "stereo_kitti":
+        seq = datasets.load_kitti_stereo(args.paths[0])
+        sensor = Sensor.STEREO
+        frames = seq.frames_stereo()
+    elif d == "stereo_euroc":
+        seq = datasets.load_euroc_stereo(
+            args.paths[0], args.paths[1], args.paths[2])
+        sensor = Sensor.STEREO
+        frames = seq.frames_stereo()
+    else:
+        seq = datasets.load_tum_rgbd(args.paths[0], args.paths[1])
+        sensor = Sensor.RGBD
+        frames = seq.frames_rgbd()
 
     sys_ = _build_system(args, sensor)
     if args.localization:
@@ -128,8 +153,15 @@ def main(argv=None):
         if args.max_frames and i >= args.max_frames:
             break
         t0 = time.perf_counter()
-        l, r, ts = frame
-        sys_.track_stereo(l, r, ts)
+        if sensor == Sensor.MONOCULAR:
+            img, ts = frame
+            sys_.track_monocular(img, ts)
+        elif sensor == Sensor.STEREO:
+            l, r, ts = frame
+            sys_.track_stereo(l, r, ts)
+        else:
+            img, depth, ts = frame
+            sys_.track_rgbd(img, depth, ts)
         times.append(time.perf_counter() - t0)
         if i % 50 == 0:
             print(f"frame {i}: {sys_.tracking_state().name} "

@@ -11,8 +11,8 @@ a scatter-min that keeps one claiming query per target feature.  Where
 the JAX package vmaps over B keyframes, the tensors here carry a leading
 B dimension.
 
-The relocalization matcher and the two Sim3 matchers of loop closing are
-here too; the initialization matcher is not ported yet (ROADMAP item 7).
+The relocalization matcher, the two Sim3 matchers of loop closing and
+the monocular initialization matcher are here too.
 The fused tracking step (slam/track_step.py) inlines the same logic as
 the tracking matchers.
 
@@ -309,6 +309,41 @@ def search_by_nodes(
     if check_rotation:
         ok = hamming.rotation_histogram_filter(angle_q, angle_t[best_idx], ok)
     ok = ok & resolve_duplicates(best_idx, best, ok, desc_t.shape[0])
+    return Matches(best_idx, best, ok)
+
+
+# ---------------------------------------------------------------------------
+# SearchForInitialization (ref: src/ORBmatcher.cc:405-520)
+# ---------------------------------------------------------------------------
+
+def search_for_initialization(
+    xy1: torch.Tensor, desc1: torch.Tensor, octave1: torch.Tensor,
+    angle1: torch.Tensor, valid1: torch.Tensor,
+    xy2: torch.Tensor, desc2: torch.Tensor, octave2: torch.Tensor,
+    angle2: torch.Tensor, valid2: torch.Tensor,
+    window: float = 100.0,
+    ratio: float = 0.9,
+    check_rotation: bool = True,
+) -> Matches:
+    """Windowed level-0 matching for the monocular initializer
+    (ref :405-520): both keypoints at octave 0, |dxy| < window, TH_LOW,
+    ratio, rotation histogram."""
+    du = torch.abs(xy1[:, 0:1] - xy2[None, :, 0])
+    dv = torch.abs(xy1[:, 1:2] - xy2[None, :, 1])
+    compat = (
+        (du < window) & (dv < window)
+        & (octave1[:, None] == 0) & (octave2[None, :] == 0)
+        & valid1[:, None] & valid2[None, :]
+    )
+    dist = hamming.distance_matrix(desc1, desc2)
+    best_idx, best, second = _best_two(dist, compat)
+    ok = (
+        valid1 & (best <= TH_LOW)
+        & (best.float() < ratio * second.float())
+    )
+    if check_rotation:
+        ok = hamming.rotation_histogram_filter(angle1, angle2[best_idx], ok)
+    ok = ok & resolve_duplicates(best_idx, best, ok, xy2.shape[0])
     return Matches(best_idx, best, ok)
 
 

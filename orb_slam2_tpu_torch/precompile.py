@@ -42,7 +42,7 @@ from orb_slam2_tpu_torch.ops.frontend import padded_total
 from orb_slam2_tpu_torch.slam import device_map
 from orb_slam2_tpu_torch.slam import track_step as ts
 from orb_slam2_tpu_torch.solvers import (
-    ba, epnp, pose_graph, pose_lm, sim3_solver,
+    ba, epnp, initializer, pose_graph, pose_lm, sim3_solver,
 )
 from orb_slam2_tpu_torch.solvers import triangulation as tri
 from orb_slam2_tpu_torch.utils import bucket_size
@@ -111,6 +111,9 @@ def precompile(system, stages: Optional[List[str]] = None,
         )
 
     fb = feat_block(n_feat)
+    # keyframe rows: a mono store carries the init frames' 2x budget
+    n_feat_s = system.store.n_feat
+    fbs = fb if n_feat_s == n_feat else feat_block(n_feat_s)
     img_u8 = rng.integers(0, 255, (H, W), np.uint8)
     depth_img = np.full((H, W), 5.0, np.float32)
 
@@ -184,7 +187,10 @@ def precompile(system, stages: Optional[List[str]] = None,
         ts.unpack_track_out(None, n_feat, M_loc, buf=pending.wait())
         tracker._chain = None      # the next pipelined frame re-anchors
 
-    add("track", "chain_step", _chain_step)
+    if not mono:
+        # System demotes a mono `pipelined` to the fast path: mono never
+        # dispatches the chained step
+        add("track", "chain_step", _chain_step)
 
     def _mirror_deltas():
         # every delta size a flush can take, into the dump row only
@@ -253,15 +259,45 @@ def precompile(system, stages: Optional[List[str]] = None,
 
     add("modular", "search_last_frame", _search_last)
 
+    if mono:
+        def _mono_init():
+            # an init attempt at its shapes: two frames of the 2x budget
+            # through the init matcher, then the H/F initializer over all
+            # their rows with 200 minimal sets (slam/tracking.py)
+            a = feat_block(n_feat_s)
+            matching.to_host(matching.search_for_initialization(
+                a["xy"], a["desc"], a["octave"], a["angle"],
+                up(np.ones(n_feat_s, bool)),
+                fbs["xy"], fbs["desc"], fbs["octave"], fbs["angle"],
+                up(np.ones(n_feat_s, bool))))
+            xy1 = rng.uniform((0, 0), (W, H), (n_feat_s, 2))
+            res = initializer.initialize(
+                up(xy1.astype(np.float32)),
+                up((xy1 + rng.normal(0, 2, xy1.shape)).astype(np.float32)),
+                up(np.ones(n_feat_s, bool)), up(s.K.astype(np.float32)),
+                up(initializer.make_ransac_samples(n_feat_s, rng)))
+            torch.cat([res.success.float()[None], res.R21.reshape(-1),
+                       res.good_mask.float()]).cpu()
+
+        add("modular", "mono_init", _mono_init)
+
     # ------------------------------------------------------------------
     # local mapping: triangulation, fusion, local BA at the pinned buckets
     # ------------------------------------------------------------------
     B = s.bucket_nb
     B_tri = bucket_size(20 if mono else 10, s.bucket_nb)
     M_fuse = s.bucket_fuse
-    n_feat_s = system.store.n_feat
-    fbs = fb if n_feat_s == n_feat else feat_block(n_feat_s)
     mir = mapper.kf_mirror
+
+    if have_voc and n_feat_s != n_feat:
+        # the mapper's deferred keyframe BoW descends store-width rows
+        # (mono keeps the 2x init width); the frontend entry covered
+        # frame width only
+        def _kf_bow():
+            system.vocabulary.assign_nodes(fbs["desc"], fbs["valid"])
+
+        add("mapping", "kf_bow_descend", _kf_bow)
+
     eye4_b = eye4[None].expand(B, 4, 4).contiguous()
 
     def fuse_points_block(M):

@@ -18,7 +18,9 @@ map reads/writes stay under store.lock.  Each chunk, and the copy of the
 result to the host, holds `utils.DEVICE_CAPTURE_LOCK` and releases it
 again, so the tracking thread can capture a CUDA graph between chunks;
 the capture lock is never taken while store.lock is held by this thread
-and never held while it waits for store.lock.
+and never held while it waits for store.lock.  The one exception is the
+monocular init's inline run: the tracker's modular frame already holds
+both locks, in that order, so the run takes them again (both reentrant).
 
 Includes the outlier-gated refinement from round 1: full Huber GBA,
 chi2 classification at convergence, re-optimize the inlier set (wrong

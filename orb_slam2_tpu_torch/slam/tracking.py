@@ -9,15 +9,17 @@ as fixed-shape device ops; this module owns only control flow and the
 map bookkeeping, which is exactly the split SURVEY.md §7 prescribes
 ("decisions on host, inner math on device").
 
-Port of orb_slam2_tpu/slam/tracking.py: the stereo and RGB-D paths,
-synchronous and pipelined.  The fused step comes from
+Port of orb_slam2_tpu/slam/tracking.py: the stereo, RGB-D and monocular
+paths, synchronous and pipelined.  The fused step comes from
 `track_step.build_track_step` (a `GraphStep` replayed as one CUDA graph a
 frame on a card, the eager step on the CPU); the pipelined path drives
 `track_step.build_track_step_chained` through a `ChainRunner`, which on a
 card returns from a dispatch without waiting for the device.  With a
 keyframe database and a relocalizer a LOST camera relocalizes
-(slam/relocalization.py).  Monocular initialization waits for ROADMAP
-item 7 and raises NotImplementedError.
+(slam/relocalization.py).  A monocular Tracker initializes from two
+views (`_monocular_initialization`: solvers/initializer.py's batched H/F
+RANSAC, then a two-keyframe map with a global BA, normalised to unit
+median depth) and then tracks with the fused step's mono mode.
 """
 
 from __future__ import annotations
@@ -39,9 +41,9 @@ from orb_slam2_tpu_torch.slam import track_step as ts
 from orb_slam2_tpu_torch.slam.device_map import DeviceMap
 from orb_slam2_tpu_torch.slam.frame import Frame, FrameBuilder, _as_uint8
 from orb_slam2_tpu_torch.slam.map_store import FrameFeatures, MapStore
-from orb_slam2_tpu_torch.solvers import pose_lm
+from orb_slam2_tpu_torch.solvers import initializer, pose_lm
 from orb_slam2_tpu_torch.utils import (
-    StageTimers, StickyBuckets, pad_rows, torch_device,
+    DEVICE_CAPTURE_LOCK, StageTimers, StickyBuckets, pad_rows, torch_device,
 )
 
 
@@ -1095,6 +1097,18 @@ class Tracker:
     # main state machine (ref: Tracking::Track src/Tracking.cc:268-507)
     # ------------------------------------------------------------------
     def _track(self, frame: Frame) -> Optional[np.ndarray]:
+        """A frame on the modular path, holding the map for its whole
+        length, as the reference holds Map::mMutexMapUpdate across
+        Track() (src/Tracking.cc:278): the device capture lock first and
+        store.lock inside, the mapper's and the loop closer's order (both
+        are reentrant, so the mono init's inline global BA takes them
+        again).  The JAX package runs this path unlocked; under the async
+        scheduler its map reads and writes then race the mapping thread
+        in the observation engine."""
+        with DEVICE_CAPTURE_LOCK, self.store.lock:
+            return self._track_locked(frame)
+
+    def _track_locked(self, frame: Frame) -> Optional[np.ndarray]:
         self.current = frame
         if self.state == State.NO_IMAGES_YET:
             self.state = State.NOT_INITIALIZED
@@ -1243,10 +1257,125 @@ class Tracker:
         self.state = State.OK
 
     def _monocular_initialization(self):
-        """ref: Tracking::MonocularInitialization (src/Tracking.cc:564-636)
-        and CreateInitialMapMonocular (:638-756)."""
-        raise NotImplementedError(
-            "monocular initialization waits for ROADMAP item 7")
+        """ref: Tracking::MonocularInitialization (src/Tracking.cc:564-636)."""
+        frame = self.current
+        n_valid = int(np.sum(frame.feats.valid))
+        if self._init_frame is None:
+            if n_valid > 100:
+                self._init_frame = frame
+                self._init_prev_matched = frame.feats.xy.copy()
+            return
+        if n_valid <= 100:
+            self._init_frame = None
+            return
+
+        f0, f1 = self._init_frame.feats, frame.feats
+        with self.timers("init/search"):
+            m = matching.search_for_initialization(
+                f0.device("xy"), f0.device("desc"),
+                f0.device("octave"), f0.device("angle"), f0.device("valid"),
+                f1.device("xy"), f1.device("desc"),
+                f1.device("octave"), f1.device("angle"), f1.device("valid"),
+                window=100.0, ratio=0.9,
+            )
+            idx, _, ok = matching.to_host(m)
+        if int(ok.sum()) < 100:
+            self._init_frame = None
+            return
+
+        with self.timers("init/initialize"):
+            rows = np.nonzero(ok)[0]
+            rng = np.random.default_rng(0)  # seeded like DUtils SeedRandOnce(0)
+            sets = initializer.make_ransac_samples(len(rows), rng)
+            sample_idx = rows[sets].astype(np.int32)
+            res = initializer.initialize(
+                f0.device("xy"), f1.device("xy")[m.idx], m.ok,
+                self._up(np.asarray(self.s.K, np.float32)),
+                self._up(sample_idx),
+            )
+            # one device-to-host copy of everything the host reads
+            n = len(ok)
+            packed = torch.cat([
+                res.success.float()[None], res.R21.reshape(-1), res.t21,
+                res.good_mask.float(), res.points3d.reshape(-1),
+            ]).cpu().numpy()
+        if packed[0] < 0.5:
+            return
+        good = (packed[13:13 + n] > 0.5) & ok
+        if int(good.sum()) < 80:
+            return
+        R21 = packed[1:10].reshape(3, 3)
+        t21 = packed[10:13]
+        pts3d = packed[13 + n:].reshape(n, 3)
+        self._create_initial_map_monocular(frame, idx, good, R21, t21, pts3d)
+
+    def _create_initial_map_monocular(self, frame, idx, good, R21, t21, pts3d):
+        """ref: Tracking::CreateInitialMapMonocular (src/Tracking.cc:638-756):
+        two keyframes, triangulated points, 20-iteration global BA, then
+        median-depth normalization to unit scale.  The global BA runs
+        inline on the caller's thread, inside the frame's capture lock and
+        store.lock (see `_track`)."""
+        store = self.store
+        f0 = self._init_frame
+        T0 = np.eye(4, dtype=np.float32)
+        T1 = np.eye(4, dtype=np.float32)
+        T1[:3, :3] = R21
+        T1[:3, 3] = t21
+        f0.Tcw = T0
+        frame.Tcw = T1
+
+        with self.timers("init/create_map"):
+            kf0 = store.add_keyframe(f0.feats, T0, f0.timestamp, f0.frame_id)
+            store.origin_kf = kf0
+            kf1 = store.add_keyframe(frame.feats, T1, frame.timestamp,
+                                     frame.frame_id)
+            born = []
+            for i in np.nonzero(good)[0]:
+                j = int(idx[i])
+                pid = store.add_point(pts3d[i], kf1, frame.feats.desc[j])
+                store.add_observation(pid, kf0, int(i))
+                store.add_observation(pid, kf1, j)
+                f0.bindings[i] = pid
+                frame.bindings[j] = pid
+                born.append(pid)
+            if born:
+                born = np.array(born, np.int64)
+                store.compute_distinctive_batch(born)
+                store.update_points_batch(born, self.scale_factors)
+            store.update_connections(kf0)
+            store.update_connections(kf1)
+
+        # global BA on the 2-view map (ref :687)
+        if self.local_mapper is not None:
+            with self.timers("init/global_ba"):
+                self.local_mapper.global_bundle_adjustment(iters=20)
+
+        # median-depth normalization (ref :690-713)
+        with self.timers("init/normalize"):
+            med_depth = store.scene_median_depth(kf0, 2)
+            if med_depth <= 0 or store.tracked_points_in_kf(kf1, 1) < 100:
+                self.reset()
+                return
+            inv_med = 1.0 / med_depth
+            T1s = store.kf_pose[kf1].copy()
+            T1s[:3, 3] *= inv_med
+            store.kf_pose[kf1] = T1s
+            pids = store.valid_pt_ids()
+            store.pt_pos[pids] *= inv_med
+            store.mark_dirty(pids)
+            store.update_points_batch(pids, self.scale_factors)
+            frame.Tcw = store.kf_pose[kf1].copy()
+
+        self.ref_kf = kf1
+        frame.ref_kf = kf1
+        self.last_kf_frame_id = frame.frame_id
+        self.local_kfs = [kf0, kf1]
+        self.local_pts = store.valid_pt_ids()
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(kf0)
+            self.local_mapper.insert_keyframe(kf1)
+        self._init_frame = None
+        self.state = State.OK
 
     # ------------------------------------------------------------------
     # pose tracking

@@ -5,9 +5,9 @@ include/System.h:61-136): builds the map, frame builder, tracker,
 local mapper and (with a vocabulary) the keyframe database, relocalizer
 and loop closer, wires them together, exposes the per-frame Track* entries,
 the SLAM/localization mode switch, reset/shutdown, and the trajectory and
-map savers.
+map savers including the fork's grid-map output.
 
-Port of orb_slam2_tpu/system.py for stereo and RGB-D.  Scheduling: the
+Port of orb_slam2_tpu/system.py.  Scheduling: the
 reference spawns LocalMapping/LoopClosing/Viewer threads
 (src/System.cc:85-104); here `scheduler="sync"` (default) runs mapping
 and loop closing deterministically inline after each keyframe (the
@@ -20,13 +20,13 @@ card unless the caller asks for "cpu"; "cuda" raises without a card.
 All threads enqueue on the device's default stream, so the workers'
 kernels and the tracker's replay serialise on the card; a worker's pass
 holds `utils.DEVICE_CAPTURE_LOCK`, so a graph capture never meets another
-thread on the device.  Waiting for later ROADMAP items, each raising
-NotImplementedError: monocular (item 7), and the viewer and grid-map
-savers (item 8).
+thread on the device.  The viewer waits for ROADMAP item 8:
+`use_viewer=True` raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 from typing import Optional
 
@@ -57,8 +57,27 @@ class System:
         if isinstance(settings, str):
             settings = Settings.from_yaml(settings)
         if sensor == Sensor.MONOCULAR:
-            raise NotImplementedError(
-                "the monocular System waits for ROADMAP item 7")
+            # mono local maps outgrow the stereo-tuned candidate block:
+            # the init-boosted 2x feature budget triangulates thousands of
+            # live points into a tracking neighbourhood, and a point past
+            # the cap can never be bound, fails MapPointCulling's
+            # >=3-observation rule, and churns (the reference caps nothing
+            # in SearchLocalPoints).  Double the block on a per-System
+            # COPY so co-resident stereo / RGB-D systems keep their
+            # shapes.  copy.copy, NOT dataclasses.replace: replace()
+            # rebuilds from fields only and drops attributes set at run
+            # time (a caller's settings.pipelined = True).
+            settings = copy.copy(settings)
+            settings.bucket_local *= 2
+            # Mono re-anchors from host state every frame (the fused fast
+            # path) instead of the pipelined velocity chain: without
+            # per-frame depth, chain extrapolation between anchors
+            # compounds into scale drift that no drift gate can see.  The
+            # reference tracks mono synchronously for the same reason
+            # (TrackWithMotionModel re-anchors on mLastFrame every frame,
+            # src/Tracking.cc:853-899).
+            if getattr(settings, "pipelined", False):
+                settings.pipelined = False
         if use_viewer:
             raise NotImplementedError("the viewer waits for ROADMAP item 8")
         self.scheduler = scheduler or settings.scheduler
@@ -70,7 +89,11 @@ class System:
         self.vocabulary = vocabulary
 
         self.builder = FrameBuilder(settings, vocabulary, device=self.device)
-        n_pad = padded_total(settings.n_features, settings.n_levels,
+        # keyframe rows: mono init frames carry the 2x feature budget
+        # (ref: src/Tracking.cc:121-126), so a mono store is that wide
+        n_budget = settings.n_features * (
+            2 if sensor == Sensor.MONOCULAR else 1)
+        n_pad = padded_total(n_budget, settings.n_levels,
                              settings.scale_factor)
         self.store = MapStore(n_pad, device=self.device)
 
@@ -143,6 +166,11 @@ class System:
     # ------------------------------------------------------------------
     # per-frame entries (ref: System::Track* src/System.cc:117-283)
     # ------------------------------------------------------------------
+    def track_monocular(self, img: np.ndarray, timestamp: float):
+        T = self.tracker.grab_monocular(img, timestamp)
+        self._pump()
+        return T
+
     def track_stereo(self, img_l, img_r, timestamp: float):
         T = self.tracker.grab_stereo(img_l, img_r, timestamp)
         self._pump()
@@ -289,6 +317,32 @@ class System:
             return np.zeros((0, 2), np.float32)
         return f.feats.xy[f.feats.valid]
 
+    def change_calibration(self, path: str):
+        """Hot-swap camera intrinsics/distortion/baseline from a settings
+        file (ref: Tracking::ChangeCalibration src/Tracking.cc:1553-1584;
+        the reference re-triggers Frame::mbInitialComputations — here the
+        camera-dependent steps and undistortion state are rebuilt)."""
+        from orb_slam2_tpu_torch.config import _parse_opencv_yaml
+
+        with open(path, "r") as f:
+            d = _parse_opencv_yaml(f.read())
+        s = self.settings
+
+        def g(key, cur):
+            return float(d.get(key, cur))
+
+        s.fx = g("Camera.fx", s.fx)
+        s.fy = g("Camera.fy", s.fy)
+        s.cx = g("Camera.cx", s.cx)
+        s.cy = g("Camera.cy", s.cy)
+        s.k1 = g("Camera.k1", 0.0)
+        s.k2 = g("Camera.k2", 0.0)
+        s.p1 = g("Camera.p1", 0.0)
+        s.p2 = g("Camera.p2", 0.0)
+        s.k3 = g("Camera.k3", 0.0)
+        s.bf = g("Camera.bf", s.bf)
+        self.tracker.refresh_calibration()
+
     # ------------------------------------------------------------------
     # savers (ref: src/System.cc:326-653)
     # ------------------------------------------------------------------
@@ -312,6 +366,15 @@ class System:
         body is identical to SaveWithTimestamps: point position followed
         by observing-keyframe timestamps)."""
         self.store.export_points_with_timestamps(path)
+
+    def save_grid_map_tum(self, path: str):
+        """Fork feature — exact port of System::SaveGridMapTUM
+        (ref: src/System.cc:481-629): fixed 450x300 grid, cell-for-cell
+        comparable output. For the configurable Monosub-style grid use
+        `mapping2d.gridmap.save_grid_map_pgm`."""
+        from orb_slam2_tpu_torch.mapping2d.gridmap import save_grid_map_tum
+
+        save_grid_map_tum(self.store, path)
 
     def save_2d_map_points_tum(self, path: str, x: int = 0, y: int = 2):
         """Fork feature (ref: System::Save2dMapPointsTUM src/System.cc:631):

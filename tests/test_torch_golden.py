@@ -7,7 +7,8 @@ sequence.
   every camera centre within 5 mm of tests/data/golden_stereo_traj.npz,
   which the JAX package recorded.
 - The driver: `apps.run_slam stereo_kitti` of the port on an on-disk
-  KITTI-format miniature writes a TUM trajectory.
+  KITTI-format miniature writes a TUM trajectory; `mono_tum` on its left
+  images as a TUM sequence initializes, tracks and writes the grid map.
 - Parity: the JAX System and the port's System on the golden sequence
   insert keyframes on the same frames and their camera centres agree
   within 5 mm on every frame.
@@ -133,8 +134,34 @@ ORBextractor.minThFAST: 7
         rows = [ln.split() for ln in open(traj) if ln.strip()]
         assert len(rows) >= len(pairs) - 2
         assert all(len(r) == 8 for r in rows)   # TUM: ts tx ty tz qxyzw
-        with pytest.raises(NotImplementedError, match="item 7"):
-            run_slam.main(["mono_tum", str(yaml), str(seq)])
+        # mono_tum on the left images as a TUM rgb.txt sequence, with the
+        # fork's grid map: initializes from two views, then tracks
+        tum = tmp_path / "tum"
+        (tum / "rgb").mkdir(parents=True)
+        with open(tum / "rgb.txt", "w") as f:
+            f.write("# timestamp filename\n")
+            for i, (l, _) in enumerate(pairs):
+                cv2.imwrite(str(tum / "rgb" / f"{i:06d}.png"), l)
+                f.write(f"{i * 0.1:.6f} rgb/{i:06d}.png\n")
+        out_m = tmp_path / "mono"
+        grid = tmp_path / "grid.pgm"
+        run_slam.main([
+            "mono_tum", str(yaml), str(tum), "--out", str(out_m),
+            "--device", "cpu", "--max-frames", "5", "--grid-map", str(grid),
+        ])
+        rows_m = [ln.split() for ln in
+                  open(str(out_m) + "_CameraTrajectory_TUM.txt")
+                  if ln.strip()]
+        assert 1 <= len(rows_m) <= 5 and all(len(r) == 8 for r in rows_m)
+        kf_rows = [ln for ln in
+                   open(str(out_m) + "_KeyFrameTrajectory_TUM.txt")
+                   if ln.strip()]
+        assert len(kf_rows) >= 2
+        assert grid.read_text().splitlines()[:2] == ["P2", "450 300"]
+        for opt in (["--viewer"], ["--ar", str(tmp_path / "ar")]):
+            with pytest.raises(NotImplementedError, match="item 8"):
+                run_slam.main(["mono_tum", str(yaml), str(tum),
+                               "--device", "cpu", *opt])
         # pipelined with the async scheduler: run_slam drains the frames
         # in flight before it saves, so every frame is in the trajectory
         out2 = tmp_path / "pipelined"

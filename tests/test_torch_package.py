@@ -75,7 +75,9 @@ def test_slam_modules_leave_jax_out():
             "places.database", "places.vocabulary", "geometry.sim3",
             "solvers.horn", "solvers.epnp", "solvers.sim3_solver",
             "solvers.pose_graph", "slam.relocalization",
-            "slam.loop_closing", "slam.global_ba")
+            "slam.loop_closing", "slam.global_ba",
+            # mono initialization and the fork's 2D grid
+            "solvers.initializer", "mapping2d.gridmap", "mapping2d.stream")
     out = _run("import importlib, sys\n"
                + "".join(f"importlib.import_module('orb_slam2_tpu_torch.{m}')\n"
                          for m in mods)
@@ -88,14 +90,15 @@ def test_slam_modules_leave_jax_out():
 
 
 def test_every_subpackage_is_walked_and_helpers_leave_jax_out():
-    """The source rule reads every sub-package (places/ included), and
-    the helper modules under tests/ that chip_smoke.py imports load
-    without jax."""
+    """The source rule reads every sub-package (places/ and mapping2d/
+    included), and the helper modules under tests/ that chip_smoke.py
+    imports load without jax."""
     subs = {p.relative_to(PKG).parts[0] for p in PKG.rglob("*.py")
             if len(p.relative_to(PKG).parts) > 1}
     assert {"places", "solvers", "geometry", "slam", "ops", "io", "apps",
-            "native"} <= subs
+            "native", "mapping2d"} <= subs
     assert (PKG / "places" / "__init__.py").exists()
+    assert (PKG / "mapping2d" / "__init__.py").exists()
     out = _run("import sys\n"
                f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
                "import test_torch_ring_map, test_torch_track_blocks\n"

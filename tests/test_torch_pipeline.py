@@ -125,8 +125,15 @@ def test_cuda_device_raises_without_a_card():
 def test_unported_modes_raise_naming_their_item():
     s = Settings(fx=100.0, fy=100.0, cx=64, cy=48, bf=50.0, width=128,
                  height=96, n_features=200)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        System(s, Sensor.MONOCULAR, device="cpu")
+    # monocular no longer waits for an item: it builds, at the 2x store
+    # width of its init frames; the viewer still waits for item 8
+    from orb_slam2_tpu_torch.ops.frontend import padded_total
+
+    mono = System(s, Sensor.MONOCULAR, device="cpu")
+    assert mono.store.n_feat == padded_total(400, 8, 1.2) == 512
+    assert mono.tracker._init_frame is None
+    with pytest.raises(NotImplementedError, match="item 8"):
+        System(s, Sensor.MONOCULAR, use_viewer=True, device="cpu")
     # place recognition no longer waits for an item: a vocabulary brings
     # the database, the relocalizer and the loop closer, global BA
     # launches (and finds nothing to do on an empty map), and the loop
