@@ -8,8 +8,9 @@ and saves trajectories.
 
 Port of orb_slam2_tpu/apps/run_slam.py, with --device, --scheduler,
 --pipelined and --vocabulary (an ORBvoc.txt-format file: relocalization,
-loop closing and global BA).  The --ar and --viewer options wait for
-ROADMAP item 8 and raise NotImplementedError naming it.
+loop closing and global BA).  --viewer serves the live viewer's HTTP
+panel and --ar DIR writes each frame with the AR cube to DIR/ar_NNNNN.png;
+both need OpenCV.
 
 Usage:
   python -m orb_slam2_tpu_torch.apps.run_slam mono_tum SETTINGS.yaml SEQ_DIR
@@ -20,7 +21,7 @@ Usage:
   python -m orb_slam2_tpu_torch.apps.run_slam rgbd_tum SETTINGS.yaml SEQ_DIR ASSOC
 Options: --device cuda|cpu  --vocabulary VOC.txt  --out PREFIX
          --max-frames N  --localization  --grid-map PGM  --save-map PATH
-         --scheduler sync|async  --pipelined
+         --scheduler sync|async  --pipelined  --viewer [PORT]  --ar DIR
 """
 
 from __future__ import annotations
@@ -32,20 +33,8 @@ from orb_slam2_tpu_torch.config import Sensor, Settings
 from orb_slam2_tpu_torch.io import datasets
 from orb_slam2_tpu_torch.system import System
 
-# what each unported option waits for
-_LATER = {"ar": 8, "viewer": 8}
-
-
-def _later(what: str):
-    raise NotImplementedError(
-        f"{what} waits for ROADMAP item {_LATER[what]}")
-
-
 def _build_system(args, sensor: Sensor) -> System:
     settings = Settings.from_yaml(args.settings)
-    for opt in _LATER:
-        if getattr(args, opt) is not None:
-            _later(opt)
     if args.pipelined:
         settings.pipelined = True
     voc = None
@@ -53,8 +42,13 @@ def _build_system(args, sensor: Sensor) -> System:
         from orb_slam2_tpu_torch.places.vocabulary import Vocabulary
 
         voc = Vocabulary.load_text(args.vocab)
-    return System(settings, sensor, vocabulary=voc,
-                  scheduler=args.scheduler, device=args.device)
+    sys_ = System(settings, sensor, vocabulary=voc,
+                  scheduler=args.scheduler,
+                  use_viewer=args.viewer is not None,
+                  viewer_port=args.viewer or 0, device=args.device)
+    if sys_.viewer is not None:
+        print(f"live viewer: http://localhost:{sys_.viewer.port}/")
+    return sys_
 
 
 def _finish(sys_: System, args, times):
@@ -147,6 +141,14 @@ def main(argv=None):
     sys_ = _build_system(args, sensor)
     if args.localization:
         sys_.activate_localization_mode()
+    ar_viewer = None
+    if args.ar:
+        import os
+
+        from orb_slam2_tpu_torch.viz.ar import ARViewer
+
+        os.makedirs(args.ar, exist_ok=True)
+        ar_viewer = ARViewer(sys_)
 
     times = []
     for i, frame in enumerate(frames):
@@ -158,11 +160,16 @@ def main(argv=None):
             sys_.track_monocular(img, ts)
         elif sensor == Sensor.STEREO:
             l, r, ts = frame
+            img = l
             sys_.track_stereo(l, r, ts)
         else:
             img, depth, ts = frame
             sys_.track_rgbd(img, depth, ts)
         times.append(time.perf_counter() - t0)
+        if ar_viewer is not None:
+            import cv2
+
+            cv2.imwrite(f"{args.ar}/ar_{i:05d}.png", ar_viewer.draw(img))
         if i % 50 == 0:
             print(f"frame {i}: {sys_.tracking_state().name} "
                   f"kf={int(sys_.map.kf_valid.sum())} "

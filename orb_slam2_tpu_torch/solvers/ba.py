@@ -24,6 +24,14 @@ iterations and accepts or rejects each step with `torch.where`: no value
 is read back to the host inside `optimize`.  The dense solve is
 `torch.linalg.solve_ex`, which checks nothing on the host.
 
+`optimize(..., edge_reduce=f)` applies `f` to every sum over the edge
+axis (the normal-equation blocks, the errors, W, the CG matvec's and
+right-hand side's segment sums, the back-substitution's): with the edge
+list sharded over processes and `f` a SUM all-reduce, every process
+takes the same steps (parallel/multichip.py).  Cameras and points, and
+the CG dot products over cameras, need no reduction.  With `f = None`
+the arithmetic is the unsharded one.
+
 The robust kernel, chi2 thresholds (5.991 mono / 7.815 stereo), and the
 two-stage optimize -> drop outliers -> reoptimize flow mirror the
 reference's LocalBundleAdjustment (ref :660-707).
@@ -139,6 +147,12 @@ def _seg_sum(values, onehot, seg_ids, num_segments):
     return out.reshape((num_segments,) + values.shape[1:])
 
 
+def _reduced(x, edge_reduce):
+    """`x`, a sum over this process's edges, summed over every process's
+    edges."""
+    return x if edge_reduce is None else edge_reduce(x)
+
+
 def _huber_weights(chi2, is_stereo, use_kernel):
     delta2 = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
     if not use_kernel:
@@ -158,7 +172,7 @@ def _huber_rho(chi2, is_stereo):
 
 
 def _assemble(prob, cam_T, pts, fx, fy, cx, cy, bf, use_kernel,
-              onehots=None):
+              onehots=None, edge_reduce=None):
     """Build all blocks of the normal equations."""
     K = cam_T.shape[0]
     P = pts.shape[0]
@@ -179,26 +193,27 @@ def _assemble(prob, cam_T, pts, fx, fy, cx, cy, bf, use_kernel,
     gp_e = (JpW.transpose(1, 2) @ r[:, :, None])[..., 0]  # (E, 3)
 
     Ck, Pm = onehots if onehots is not None else (None, None)
-    Hcc = _seg_sum(Hcc_e, Ck, prob.edge_cam, K)
-    Hpp = _seg_sum(Hpp_e, Pm, prob.edge_pt, P)
-    gc = _seg_sum(gc_e, Ck, prob.edge_cam, K)
-    gp = _seg_sum(gp_e, Pm, prob.edge_pt, P)
+    Hcc = _reduced(_seg_sum(Hcc_e, Ck, prob.edge_cam, K), edge_reduce)
+    Hpp = _reduced(_seg_sum(Hpp_e, Pm, prob.edge_pt, P), edge_reduce)
+    gc = _reduced(_seg_sum(gc_e, Ck, prob.edge_cam, K), edge_reduce)
+    gp = _reduced(_seg_sum(gp_e, Pm, prob.edge_pt, P), edge_reduce)
 
     rho = _huber_rho(chi2, is_st) if use_kernel else chi2
-    err = (rho * row_mask[:, 0]).sum()
+    err = _reduced((rho * row_mask[:, 0]).sum(), edge_reduce)
     return Hcc, Hpp, Hcp_e, gc, gp, err
 
 
-def _total_error(prob, cam_T, pts, fx, fy, cx, cy, bf, use_kernel):
+def _total_error(prob, cam_T, pts, fx, fy, cx, cy, bf, use_kernel,
+                 edge_reduce=None):
     r, _, _, row_mask, is_st = _edge_terms(prob, cam_T, pts, fx, fy, cx,
                                            cy, bf)
     chi2 = _chi2(r, row_mask, prob.edge_inv_sigma2)
     rho = _huber_rho(chi2, is_st) if use_kernel else chi2
-    return (rho * row_mask[:, 0]).sum()
+    return _reduced((rho * row_mask[:, 0]).sum(), edge_reduce)
 
 
 def _solve_cameras_dense(Hcc, Hcp_e, Hpp_inv, gc, gp, prob, lam,
-                         onehots=None):
+                         onehots=None, edge_reduce=None):
     """Dense Schur solve for local-BA-sized problems.
 
     Materializes W (K, P, 6, 3) = sum of Hcp blocks — use only when
@@ -218,6 +233,7 @@ def _solve_cameras_dense(Hcc, Hcp_e, Hpp_inv, gc, gp, prob, lam,
         W = torch.zeros((K * P, 18), dtype=Hcp_e.dtype,
                         device=Hcp_e.device).index_add_(
             0, flat_idx, Hcp_e.reshape(E, 18)).reshape(K, P, 6, 3)
+    W = _reduced(W, edge_reduce)
     Y = torch.einsum("kpab,pbc->kpac", W, Hpp_inv)
     S = -torch.einsum("kpac,lpbc->klab", Y, W)            # (K, K, 6, 6)
     eyeK = torch.eye(K, dtype=S.dtype, device=S.device)
@@ -232,7 +248,7 @@ def _solve_cameras_dense(Hcc, Hcp_e, Hpp_inv, gc, gp, prob, lam,
 
 
 def _solve_cameras_cg(Hcc, Hcp_e, Hpp_inv, gc, gp, prob, lam,
-                      iters: int = 60):
+                      iters: int = 60, edge_reduce=None):
     """Matrix-free PCG on the Schur complement for global BA.
 
     S x = Hcc x - W Hpp^-1 W^T x with W^T x accumulated edge-wise.
@@ -243,8 +259,10 @@ def _solve_cameras_cg(Hcc, Hcp_e, Hpp_inv, gc, gp, prob, lam,
     lamI = lam * torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
 
     def seg(values, ids, n):
-        return torch.zeros((n, values.shape[1]), dtype=values.dtype,
-                           device=values.device).index_add_(0, ids, values)
+        return _reduced(
+            torch.zeros((n, values.shape[1]), dtype=values.dtype,
+                        device=values.device).index_add_(0, ids, values),
+            edge_reduce)
 
     def S_matvec(x):                                      # x: (K, 6)
         hx = torch.einsum("kab,kb->ka", Hcc, x) + lam * x
@@ -287,10 +305,14 @@ def optimize(
     use_kernel: bool = True,
     mode: str = "dense",
     cg_iters: int = 60,
+    edge_reduce=None,
 ):
     """Run `iters` LM iterations; returns updated (cam_T, pts, final_err).
 
-    fx..bf: Python numbers or 0-dim tensors on the problem's device."""
+    fx..bf: Python numbers or 0-dim tensors on the problem's device.
+    edge_reduce: None, or a function applied to every sum over the edge
+    axis (a SUM all-reduce when `prob` holds one process's share of the
+    edges)."""
     dev = prob.pts.device
     fx, fy, cx, cy, bf = (consts.scalar(v, dev) for v in (fx, fy, cx, cy, bf))
     E_n = prob.edge_cam.shape[0]
@@ -313,30 +335,32 @@ def optimize(
     for _ in range(iters):
         Hcc, Hpp, Hcp_e, gc, gp, err_old = _assemble(
             prob, cam_T, pts, fx, fy, cx, cy, bf, use_kernel,
-            onehots=onehots,
+            onehots=onehots, edge_reduce=edge_reduce,
         )
         # regularize padded points so inversion stays sane
         Hpp_inv = se3.inv3x3(Hpp + lam * eye3 + pad_reg)
 
         if mode == "dense":
             dc = _solve_cameras_dense(Hcc, Hcp_e, Hpp_inv, gc, gp, prob,
-                                      lam, onehots=onehots)
+                                      lam, onehots=onehots,
+                                      edge_reduce=edge_reduce)
         else:
             dc = _solve_cameras_cg(Hcc, Hcp_e, Hpp_inv, gc, gp, prob, lam,
-                                   iters=cg_iters)
+                                   iters=cg_iters, edge_reduce=edge_reduce)
         dc = torch.where(frozen, 0.0, dc)
 
         # back-substitute points: dp = -Hpp^-1 (gp + W^T dc)
         wtd_e = torch.einsum("eab,ea->eb", Hcp_e, dc[prob.edge_cam])
-        wtd = _seg_sum(wtd_e, onehots[1] if onehots is not None else None,
-                       prob.edge_pt, P_n)
+        wtd = _reduced(
+            _seg_sum(wtd_e, onehots[1] if onehots is not None else None,
+                     prob.edge_pt, P_n), edge_reduce)
         dp = -torch.einsum("pab,pb->pa", Hpp_inv, gp + wtd)
         dp = torch.where(prob.pt_mask[:, None], dp, 0.0)
 
         cam_T_new = se3.exp(dc) @ cam_T
         pts_new = pts + dp
         err_new = _total_error(prob, cam_T_new, pts_new, fx, fy, cx, cy, bf,
-                               use_kernel)
+                               use_kernel, edge_reduce)
         accept = err_new < err_old
         cam_T = torch.where(accept, cam_T_new, cam_T)
         pts = torch.where(accept, pts_new, pts)

@@ -20,8 +20,13 @@ card unless the caller asks for "cpu"; "cuda" raises without a card.
 All threads enqueue on the device's default stream, so the workers'
 kernels and the tracker's replay serialise on the card; a worker's pass
 holds `utils.DEVICE_CAPTURE_LOCK`, so a graph capture never meets another
-thread on the device.  The viewer waits for ROADMAP item 8:
-`use_viewer=True` raises NotImplementedError naming it.
+thread on the device.  `use_viewer=True` starts the live viewer
+(viz/live.py; it needs OpenCV) on a thread of its own.  Its menu never
+changes the tracker itself: `request_localization_mode` and
+`request_reset` leave a request that the next `track_*` call applies
+before its frame, on the tracking thread, after draining any pipelined
+frames in flight (the reference's mbActivateLocalizationMode / mbReset,
+src/System.cc:117-186).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ class System:
         vocabulary=None,
         scheduler: Optional[str] = None,
         use_viewer: bool = False,
+        viewer_port: Optional[int] = 0,
         *,
         device="cuda",
     ):
@@ -78,8 +84,6 @@ class System:
             # src/Tracking.cc:853-899).
             if getattr(settings, "pipelined", False):
                 settings.pipelined = False
-        if use_viewer:
-            raise NotImplementedError("the viewer waits for ROADMAP item 8")
         self.scheduler = scheduler or settings.scheduler
         if self.scheduler not in ("sync", "async"):
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
@@ -131,6 +135,19 @@ class System:
             device=self.device,
         )
 
+        # requests of the viewer's thread, applied by the next track_*
+        self._request_lock = threading.Lock()
+        self._mode_request: Optional[bool] = None
+        self._reset_request = False
+
+        # live viewer thread (ref: src/System.cc:99-103 spawns Viewer;
+        # here it is an HTTP panel + optional local window, viz/live.py)
+        self.viewer = None
+        if use_viewer:
+            from orb_slam2_tpu_torch.viz.live import LiveViewer
+
+            self.viewer = LiveViewer(self, http_port=viewer_port)
+
         self._shutdown = False
         self._workers: list = []
         self._work_event = threading.Event()
@@ -167,17 +184,26 @@ class System:
     # per-frame entries (ref: System::Track* src/System.cc:117-283)
     # ------------------------------------------------------------------
     def track_monocular(self, img: np.ndarray, timestamp: float):
+        self._apply_requests()
         T = self.tracker.grab_monocular(img, timestamp)
+        if self.viewer is not None:
+            self.viewer.push_frame(img)
         self._pump()
         return T
 
     def track_stereo(self, img_l, img_r, timestamp: float):
+        self._apply_requests()
         T = self.tracker.grab_stereo(img_l, img_r, timestamp)
+        if self.viewer is not None:
+            self.viewer.push_frame(img_l)
         self._pump()
         return T
 
     def track_rgbd(self, img, depth, timestamp: float):
+        self._apply_requests()
         T = self.tracker.grab_rgbd(img, depth, timestamp)
+        if self.viewer is not None:
+            self.viewer.push_frame(img)
         self._pump()
         return T
 
@@ -257,6 +283,34 @@ class System:
     def deactivate_localization_mode(self):
         self.tracker.set_localization_mode(False)
 
+    def request_localization_mode(self, on: bool):
+        """Ask for localization mode on or off from another thread (the
+        viewer's menu); the next track_* call applies it."""
+        with self._request_lock:
+            self._mode_request = bool(on)
+
+    def request_reset(self):
+        """Ask for a reset from another thread (the viewer's menu); the
+        next track_* call applies it, after the mode request if both are
+        pending, as the reference does."""
+        with self._request_lock:
+            self._reset_request = True
+
+    def _apply_requests(self):
+        """On the tracking thread, before its frame: drain the pipelined
+        frames in flight, then apply the pending mode and reset requests
+        (ref: System::TrackStereo src/System.cc:132-166)."""
+        with self._request_lock:
+            mode, reset = self._mode_request, self._reset_request
+            self._mode_request, self._reset_request = None, False
+        if mode is None and not reset:
+            return
+        self.drain()
+        if mode is not None:
+            self.tracker.set_localization_mode(mode)
+        if reset:
+            self.reset()
+
     def map_changed(self) -> bool:
         idx = self.store.big_change_idx
         changed = getattr(self, "_last_big_change", 0) < idx
@@ -269,6 +323,9 @@ class System:
 
     def shutdown(self):
         self._shutdown = True
+        if self.viewer is not None:
+            # ref: src/System.cc:305-317 waits for the viewer to finish
+            self.viewer.close()
         # stop the mapping worker's drain loop and interrupt a local BA
         # in flight (ref: LocalMapping::RequestFinish + Optimizer
         # setForceStopFlag, src/LocalMapping.cc:705-757)

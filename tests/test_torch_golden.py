@@ -8,7 +8,9 @@ sequence.
   which the JAX package recorded.
 - The driver: `apps.run_slam stereo_kitti` of the port on an on-disk
   KITTI-format miniature writes a TUM trajectory; `mono_tum` on its left
-  images as a TUM sequence initializes, tracks and writes the grid map.
+  images as a TUM sequence initializes, tracks and writes the grid map,
+  and runs with the live viewer (`--viewer`) and the AR overlay (`--ar`,
+  one PNG a frame).
 - Parity: the JAX System and the port's System on the golden sequence
   insert keyframes on the same frames and their camera centres agree
   within 5 mm on every frame.
@@ -87,7 +89,7 @@ class TestGoldenTrajectory:
 
 
 class TestDriverSmoke:
-    def test_run_slam_stereo_kitti_end_to_end(self, tmp_path):
+    def test_run_slam_stereo_kitti_end_to_end(self, tmp_path, capsys):
         """The port's run_slam on a miniature on-disk KITTI-format
         dataset: loader -> System -> trajectory outputs."""
         import cv2
@@ -158,10 +160,22 @@ ORBextractor.minThFAST: 7
                    if ln.strip()]
         assert len(kf_rows) >= 2
         assert grid.read_text().splitlines()[:2] == ["P2", "450 300"]
-        for opt in (["--viewer"], ["--ar", str(tmp_path / "ar")]):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                run_slam.main(["mono_tum", str(yaml), str(tum),
-                               "--device", "cpu", *opt])
+        # the live viewer and the AR overlay, 5 mono frames each
+        ar_dir = tmp_path / "ar"
+        for name, opt in (("viewer", ["--viewer"]),
+                          ("ar", ["--ar", str(ar_dir)])):
+            out_v = tmp_path / name
+            run_slam.main(["mono_tum", str(yaml), str(tum), "--device",
+                           "cpu", "--max-frames", "5", "--out", str(out_v),
+                           *opt])
+            rows_v = [ln for ln in
+                      open(str(out_v) + "_CameraTrajectory_TUM.txt")
+                      if ln.strip()]
+            assert 1 <= len(rows_v) <= 5
+        assert "live viewer: http://localhost:" in capsys.readouterr().out
+        pngs = sorted(p.name for p in ar_dir.iterdir())
+        assert pngs == [f"ar_{i:05d}.png" for i in range(5)]
+        assert cv2.imread(str(ar_dir / pngs[-1])).shape == (H, W, 3)
         # pipelined with the async scheduler: run_slam drains the frames
         # in flight before it saves, so every frame is in the trajectory
         out2 = tmp_path / "pipelined"

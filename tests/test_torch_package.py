@@ -77,7 +77,10 @@ def test_slam_modules_leave_jax_out():
             "solvers.pose_graph", "slam.relocalization",
             "slam.loop_closing", "slam.global_ba",
             # mono initialization and the fork's 2D grid
-            "solvers.initializer", "mapping2d.gridmap", "mapping2d.stream")
+            "solvers.initializer", "mapping2d.gridmap", "mapping2d.stream",
+            # the viewers and multi-device
+            "viz.viewer", "viz.live", "viz.ar", "parallel.multichip",
+            "parallel.dryrun")
     out = _run("import importlib, sys\n"
                + "".join(f"importlib.import_module('orb_slam2_tpu_torch.{m}')\n"
                          for m in mods)
@@ -96,7 +99,7 @@ def test_every_subpackage_is_walked_and_helpers_leave_jax_out():
     subs = {p.relative_to(PKG).parts[0] for p in PKG.rglob("*.py")
             if len(p.relative_to(PKG).parts) > 1}
     assert {"places", "solvers", "geometry", "slam", "ops", "io", "apps",
-            "native", "mapping2d"} <= subs
+            "native", "mapping2d", "viz", "parallel"} <= subs
     assert (PKG / "places" / "__init__.py").exists()
     assert (PKG / "mapping2d" / "__init__.py").exists()
     out = _run("import sys\n"
@@ -107,8 +110,22 @@ def test_every_subpackage_is_walked_and_helpers_leave_jax_out():
     assert out.strip() == "[]", out
 
 
+def test_every_module_of_the_jax_package_has_its_counterpart():
+    """The two packages' file lists differ only by the port's own
+    additions: each Pallas kernel's module is a CUDA module here, and
+    convert.py, ops/consts.py and ops/cuda_build.py are new."""
+    jax_pkg = ROOT / "orb_slam2_tpu"
+    a = {p.relative_to(jax_pkg).as_posix() for p in jax_pkg.rglob("*.py")}
+    b = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    pallas = {f"ops/{k}_pallas.py" for k in ("fast", "orb", "stereo")}
+    cuda = {f"ops/{k}_cuda.py" for k in ("fast", "orb", "stereo")}
+    assert a - b == pallas
+    assert b - a == cuda | {"convert.py", "ops/consts.py",
+                            "ops/cuda_build.py"}
+
+
 @pytest.mark.parametrize("name", ["System", "run_slam", "LoopCloser",
-                                  "Relocalizer"])
+                                  "Relocalizer", "dryrun"])
 def test_entry_points_ask_for_the_card(name):
     """Entry points default to the card or require the device by
     keyword; none falls back to the CPU by itself."""
@@ -122,6 +139,12 @@ def test_entry_points_ask_for_the_card(name):
     if name == "run_slam":
         src = inspect.getsource(run_slam.main)
         assert '"--device", default="cuda"' in src
+        return
+    if name == "dryrun":
+        from orb_slam2_tpu_torch.parallel import dryrun
+
+        src = inspect.getsource(dryrun.main)
+        assert 'choices=("cpu", "cuda"), default="cuda"' in src
         return
     param = inspect.signature(
         {"System": System, "LoopCloser": LoopCloser,

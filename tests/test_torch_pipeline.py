@@ -126,14 +126,18 @@ def test_unported_modes_raise_naming_their_item():
     s = Settings(fx=100.0, fy=100.0, cx=64, cy=48, bf=50.0, width=128,
                  height=96, n_features=200)
     # monocular no longer waits for an item: it builds, at the 2x store
-    # width of its init frames; the viewer still waits for item 8
+    # width of its init frames; nor does the viewer: a mono System with it
+    # builds, serves its panel and shuts down cleanly
     from orb_slam2_tpu_torch.ops.frontend import padded_total
 
     mono = System(s, Sensor.MONOCULAR, device="cpu")
     assert mono.store.n_feat == padded_total(400, 8, 1.2) == 512
     assert mono.tracker._init_frame is None
-    with pytest.raises(NotImplementedError, match="item 8"):
-        System(s, Sensor.MONOCULAR, use_viewer=True, device="cpu")
+    viewed = System(s, Sensor.MONOCULAR, use_viewer=True, device="cpu")
+    assert viewed.viewer.port > 0 and viewed.viewer.thread.is_alive()
+    viewed.shutdown()
+    assert not viewed.viewer.thread.is_alive()
+    assert viewed.viewer.render_errors == 0, viewed.viewer.last_render_error
     # place recognition no longer waits for an item: a vocabulary brings
     # the database, the relocalizer and the loop closer, global BA
     # launches (and finds nothing to do on an empty map), and the loop
