@@ -199,6 +199,18 @@ there is no CUDA device or any phase fails.  Phases:
                  beside the unsharded ms (default route), the all-reduces
                  an LM iteration, and two default-route solves' spread.
 
+  12. bench  bench_torch.py, the port's bench.py, run in this process at
+             its full depth (BENCH_FRAMES=240: mono 720 frames, the kidnap
+             at frame 60) with phase 9's vocabulary where phase 9 ran:
+             its last line has exactly bench.py's keys (read from
+             bench.py's source); all five passes ran; no graph capture
+             inside any timed window; the unpipelined, pipelined and
+             kidnap passes healthy by bench.py's rule, the kidnap pass
+             relocalized; FAST, describe and the stereo refinement
+             launched inside each stereo pass's window (the wrappers'
+             counts).  Mono's and RGB-D's health is printed, not gated
+             (phase 10d gates mono's).
+
 Every phase's seconds and the whole script's are printed.  `--phases`
 (e.g. `--phases 9`) runs the build and only the named phases, for
 development: the kernels line is then left out (`--phases 11` runs
@@ -305,7 +317,6 @@ BLIND_CALL_MAX_MS = 30.0
 ASYNC_MAX_POSE_ERR_M, ASYNC_MAX_POSE_ERR_DEG = 0.15, 1.5
 
 # the places phase
-VOC_VIEWS, VOC_K, VOC_L = 30, 10, 4     # bench.py's recipe
 HORN_ATOL = 1e-5
 PNP_MAX_ERR_M, PNP_MAX_ERR_DEG = 1e-3, 0.05
 SIM3_ATOL = 1e-4
@@ -348,18 +359,20 @@ SHARDED_PTS_ATOL = 1e-3
 SHARDED_ERR_RTOL = 1e-4
 VIEWER_WAIT_S = 10.0
 
+# the bench phase: bench_torch.py at its own depth.  BENCH_FRAMES spreads
+# the same 1.5 orbits over fewer frames, and at 60 (9 deg a frame) or 120
+# (4.5 deg) the unpipelined stereo pass drifted to a keyframe ATE of
+# 1.8-3.4 m in 4 of 6 runs on the H100 (healthy only when its loop closed)
+BENCH_SMOKE_FRAMES = 240
+# each pass's frames in units of BENCH_FRAMES, in bench.py's order
+BENCH_PASS_FRAMES = {"mono": 3, "rgbd": 1, "unpipelined": 1, "pipelined": 1,
+                     "kidnap": 1}
+BENCH_STEREO_PASSES = ("unpipelined", "pipelined", "kidnap")
+
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
-
-
-def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
 
 
 def cuda_ms(torch, fn, iters: int = 10, reps: int = 5) -> float:
@@ -1327,33 +1340,6 @@ def pipeline_phase(torch, np, dev, settings, scene, gpu, track,
 # phase 9: place recognition, relocalization, loop closing
 # ---------------------------------------------------------------------------
 
-def train_vocabulary(torch, np, dev, scene):
-    """bench.py's recipe: the descriptors of VOC_VIEWS rendered views
-    around the orbit, extracted on the card with the kernels, then a
-    k=10 / L=4 tree by hierarchical k-medians on the host."""
-    from orb_slam2_tpu_torch import convert
-    from orb_slam2_tpu_torch.ops import frontend
-    from orb_slam2_tpu_torch.places.vocabulary import Vocabulary
-    from synthetic import circle_trajectory
-
-    t0 = time.perf_counter()
-    descs = []
-    for T in circle_trajectory(VOC_VIEWS, orbit_r=3.0,
-                               total_angle=2 * np.pi):
-        img = torch.from_numpy(scene.render(T).astype(np.uint8)).to(dev)
-        d = convert.features_to_numpy(
-            frontend.extract(img, n_features=N_FEATURES))
-        descs.append(d["desc"][d["valid"]])
-    t1 = time.perf_counter()
-    voc = Vocabulary.train(np.concatenate(descs), k=VOC_K, L=VOC_L,
-                           levels_up=1)
-    print(f"[places] vocabulary: {sum(len(d) for d in descs)} descriptors "
-          f"of {VOC_VIEWS} views in {t1 - t0:.1f} s, trained k={VOC_K} "
-          f"L={VOC_L} ({len(voc.node_desc)} nodes, {voc.n_words} words) in "
-          f"{time.perf_counter() - t1:.1f} s on the host")
-    return voc
-
-
 def _world(rng, np, n):
     return np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
                      rng.uniform(4, 10, n)], -1).astype(np.float32)
@@ -1694,25 +1680,12 @@ def circuit_frames(np, scene):
     return poses, pairs
 
 
-def keyframe_ate(np, store, poses) -> float:
-    """RMSE of the keyframe centres against the rendered trajectory
-    (bench.py's kf_ate)."""
-    T0 = poses[0]
-    errs = []
-    for k in store.valid_kf_ids():
-        i = int(round(store.kf_timestamp[int(k)] / FRAME_PERIOD_S))
-        Tg = poses[i] @ np.linalg.inv(T0)
-        Te = store.kf_pose[int(k)]
-        errs.append(np.linalg.norm(-Te[:3, :3].T @ Te[:3, 3]
-                                   + Tg[:3, :3].T @ Tg[:3, 3]))
-    return float(np.sqrt(np.mean(np.square(errs))))
-
-
 def loop_run(torch, np, dev, settings, scene, voc, circuit, gpu,
              with_loop: bool) -> dict:
     """Phase 9c: bench.py's circuit through System with the sync
     scheduler; with_loop=False disables the loop closer's queue, for the
     drift the closure has to correct."""
+    from bench_torch import kf_ate
     from orb_slam2_tpu_torch.config import Sensor
     from orb_slam2_tpu_torch.system import System
 
@@ -1744,7 +1717,7 @@ def loop_run(torch, np, dev, settings, scene, voc, circuit, gpu,
     system.shutdown()
     store = system.store
     check_store_invariants(np, store)
-    ate = keyframe_ate(np, store, poses)
+    ate = kf_ate(system, poses)
     n_kf = int(store.kf_valid.sum())
     captures = tracker._get_fast_step().captures - captures0
     grew = tracker._buckets("local", 1) > settings.bucket_local
@@ -1833,6 +1806,7 @@ def ring_run(torch, np, dev, settings, gpu) -> dict:
 
 def places_phase(torch, np, dev, settings, scene, gpu) -> dict:
     """Phase 9: place recognition, relocalization and loop closing."""
+    from bench_torch import train_vocabulary
     from orb_slam2_tpu_torch.ops import fast_cuda, orb_cuda, stereo_cuda
 
     spans = {}
@@ -1845,7 +1819,7 @@ def places_phase(torch, np, dev, settings, scene, gpu) -> dict:
         return out
 
     timed("9a solvers", place_solvers_check, torch, np, dev, gpu)
-    voc = timed("vocabulary", train_vocabulary, torch, np, dev, scene)
+    voc = timed("vocabulary", train_vocabulary, scene, dev)
     fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
     reloc = timed("9b relocalization", reloc_run, torch, np, dev, settings,
                   scene, voc, gpu)
@@ -2139,39 +2113,6 @@ def mono_track_check(torch, np, dev, settings, scene, poses,
     return out
 
 
-def umeyama_ate(np, store, poses) -> float:
-    """bench.py's mono keyframe ATE (kf_ate with mono_scale): keyframe
-    centres against the rendered trajectory after a similarity alignment
-    (rotation by SVD, scale as the median ratio of centred norms)."""
-    T0 = poses[0]
-    est, gt = [], []
-    for k in store.valid_kf_ids():
-        i = int(round(store.kf_timestamp[int(k)] / FRAME_PERIOD_S))
-        if i >= len(poses):
-            continue
-        Tg = poses[i] @ np.linalg.inv(T0)
-        Te = store.kf_pose[int(k)]
-        est.append(-Te[:3, :3].T @ Te[:3, 3])
-        gt.append(-Tg[:3, :3].T @ Tg[:3, 3])
-    est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
-    if len(est) < 3:
-        return float("inf")
-    me, mg = est.mean(0), gt.mean(0)
-    ec, gc = est - me, gt - mg
-    ne = np.linalg.norm(ec, axis=1)
-    keep = ne > 1e-6
-    if keep.sum() >= 3:
-        U, _, Vt = np.linalg.svd(ec.T @ gc)
-        Ra = (U @ Vt).T
-        if np.linalg.det(Ra) < 0:
-            U[:, -1] *= -1
-            Ra = (U @ Vt).T
-        sc = np.median(np.linalg.norm(gc[keep], axis=1) / ne[keep])
-        est = (ec @ Ra.T) * sc + mg
-        gt = gc + mg
-    return float(np.sqrt(((est - gt) ** 2).sum(1).mean()))
-
-
 def mono_bench_run(torch, np, dev, settings, poses, frames, voc,
                    gpu) -> dict:
     """Phases 10d and 10e: bench.py's mono pass (bench.py:304-336) on the
@@ -2179,6 +2120,7 @@ def mono_bench_run(torch, np, dev, settings, poses, frames, voc,
     first frame.  Returns the wrappers' launch counts over the pass."""
     import copy
 
+    from bench_torch import kf_ate
     from orb_slam2_tpu_torch.config import Sensor
     from orb_slam2_tpu_torch.mapping2d.gridmap import GridParams
     from orb_slam2_tpu_torch.mapping2d.stream import attach_grid_mapper
@@ -2256,7 +2198,7 @@ def mono_bench_run(torch, np, dev, settings, poses, frames, voc,
     check_store_invariants(np, store)
     n_kf = int(store.kf_valid.sum())
     loops = closer.loops_closed
-    ate = umeyama_ate(np, store, poses)
+    ate = kf_ate(system, poses, mono_scale=True)
     timed = sorted(frame_ms)
     out = {
         "metric": "mono_pass", "frames": len(frames),
@@ -2327,6 +2269,7 @@ def mono_phase(torch, np, dev, settings, scene, gpu, track, voc) -> dict:
     """Phase 10: monocular SLAM at the KITTI shape."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from bench_torch import train_vocabulary
     from synthetic import circle_trajectory
 
     spans = {}
@@ -2347,7 +2290,7 @@ def mono_phase(torch, np, dev, settings, scene, gpu, track, voc) -> dict:
     with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
         frames = timed("render", lambda: list(pool.map(render, poses)))
     if voc is None:
-        voc = timed("vocabulary", train_vocabulary, torch, np, dev, scene)
+        voc = timed("vocabulary", train_vocabulary, scene, dev)
     init = timed("10a init", mono_init_check, torch, np, dev, settings,
                  scene, poses, gpu)
     kern = timed("10b kernels", mono_kernel_check, torch, np, dev,
@@ -2738,6 +2681,58 @@ def viz_multi_phase(torch, np, dev, settings, gpu, track) -> dict:
         "multi": {k: v for k, v in multi.items() if k != "launches"},
         "launches": launches, "gpu": gpu}))
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the port's bench, bench_torch.py, at its full depth
+# ---------------------------------------------------------------------------
+def bench_phase(voc) -> dict:
+    """Phase 12: bench_torch.main in this process at BENCH_FRAMES =
+    BENCH_SMOKE_FRAMES; voc, where given, is phase 9's vocabulary of the
+    same scene."""
+    import bench_torch
+    from bench_reference import reference_keys
+    from orb_slam2_tpu_torch.ops import fast_cuda, orb_cuda, stereo_cuda
+
+    saved = os.environ.get("BENCH_FRAMES")
+    os.environ["BENCH_FRAMES"] = str(BENCH_SMOKE_FRAMES)
+    fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
+    try:
+        run = bench_torch.main(["--device", "cuda"], vocabulary=voc)
+    finally:
+        if saved is None:
+            del os.environ["BENCH_FRAMES"]
+        else:
+            os.environ["BENCH_FRAMES"] = saved
+    launches = bench_torch.kernel_launches()
+    out, passes = run["out"], run["passes"]
+    keys = reference_keys()
+    check(set(out) == keys, "bench line's keys differ from bench.py's: "
+          f"extra {sorted(set(out) - keys)}, "
+          f"missing {sorted(keys - set(out))}")
+    check(list(passes) == list(BENCH_PASS_FRAMES),
+          f"bench ran the passes {list(passes)}")
+    for name, rec in passes.items():
+        want = BENCH_PASS_FRAMES[name] * BENCH_SMOKE_FRAMES
+        check(rec["frames"] == want,
+              f"bench {name}: {rec['frames']} frames, not {want}")
+        caps = rec["captures"]
+        check(caps["fast_step"] == 0 and caps["chain_step"] == 0,
+              f"bench {name}: graph captures inside the timed window {caps}")
+    for name in BENCH_STEREO_PASSES:
+        check(passes[name]["healthy"] and name not in out["degraded_passes"],
+              f"bench {name} pass degraded: {out}")
+        for kernel, n in passes[name]["launches"].items():
+            check(n > 0, f"bench {name}: kernel {kernel} not launched")
+    check(out["relocalizations"] >= 1,
+          f"bench kidnap pass: {out['relocalizations']} relocalizations")
+    print(f"[bench] {BENCH_SMOKE_FRAMES} frames: degraded "
+          f"{out['degraded_passes']} (mono and RGB-D not gated here: mono "
+          f"healthy {passes['mono']['healthy']}, RGB-D healthy "
+          f"{passes['rgbd']['healthy']}); seconds "
+          + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in passes.items())
+          + f"; launches {launches}")
+    return {"launches": launches, "out": out, "passes": passes}
 
 
 def alternate(fns: dict, timer, rounds: int = 4) -> dict:
@@ -3157,7 +3152,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="", help="comma-separated subset of "
-                    "front,6,7,8,9,10,11 for development (default: all; "
+                    "front,6,7,8,9,10,11,12 for development (default: all; "
                     "11 runs 6 first)")
     only = {p for p in ap.parse_args(argv).phases.split(",") if p}
     t_script = time.perf_counter()
@@ -3177,6 +3172,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
+    from bench_torch import gpu_line
     from orb_slam2_tpu_torch.config import Settings
     from orb_slam2_tpu_torch.ops import cuda_build
     from synthetic import CylinderScene, circle_trajectory
@@ -3233,6 +3229,8 @@ def main(argv=None) -> int:
         if "11" in only:
             phase("11 viz/multi", viz_multi_phase, torch, np, dev, settings,
                   gpu, track)
+        if "12" in only:
+            phase("12 bench", bench_phase, voc)
         print(f"[phase] seconds: {spans}; whole script "
               f"{time.perf_counter() - t_script:.1f} s")
         print(gpu)
@@ -3272,6 +3270,9 @@ def main(argv=None) -> int:
     # ---- 11. the viewers and multi-device ----------------------------------
     viz_multi = phase("11 viz/multi", viz_multi_phase, torch, np, dev,
                       settings, gpu, track)
+
+    # ---- 12. bench_torch.py: bench.py's five passes on the port ------------
+    bench = phase("12 bench", bench_phase, places["voc"])
     meta = {
         "fast": ("fast_detect_with_fallback", "orb_slam2_tpu_torch/csrc/fast.cu",
                  "orb_slam2_tpu/ops/fast_pallas.py:137", front["errs"]["fast"],
@@ -3306,6 +3307,7 @@ def main(argv=None) -> int:
              "launches_places": places["launches"][key],
              "launches_mono": mono["launches"][key],
              "launches_viz_multidevice": viz_multi["launches"][key],
+             "launches_bench": bench["launches"][key],
              "bound_work": work, "per": per}
         if "kernel_8" in t:
             k["ms_8_launches"] = t["kernel_8"]

@@ -168,7 +168,10 @@ class LocalMapper:
     def _process_one(self):
         self.processing = True
         try:
-            kf = self.queue.pop(0)
+            try:
+                kf = self.queue.pop(0)
+            except IndexError:    # a reset emptied the queue while
+                return            # process_one waited for the lock
             self.current_kf = kf
             self.abort_ba = False
             # snapshot the store: Tracker.reset swaps self.store under a
@@ -759,32 +762,39 @@ class LocalMapper:
         # Running wholly on the old store is safe — reset discards it.
         store = self.store
         lock = store.lock
-        cams = [kf] + [c for c in store.ordered_covisibles(kf)]
-        cams = [c for c in cams if store.kf_valid[c]]
-        pids = store.points_in_kfs(cams)
-        if len(pids) == 0 or len(cams) < 2:
-            return
-        cam_set = set(cams)
-        # all out-of-window observers, via one native bulk query (the
-        # per-point items() loop was pure-Python per-observation cost)
-        obs_kfs, _ = store.obs.observers_of(pids)
-        fixed = sorted(
-            int(c) for c in obs_kfs
-            if int(c) not in cam_set and store.kf_valid[c])
-        # the origin keyframe is ALWAYS held fixed when it appears in the
-        # window (ref: src/Optimizer.cc:505 vSE3->setFixed(mnId==0));
-        # without this the early map's gauge drifts off the origin every
-        # local BA until enough out-of-window observers exist
-        origin = store.origin_kf
-        if origin in cam_set:
-            cams = [c for c in cams if c != origin]
-            cam_set.discard(origin)
-            fixed = sorted(set(fixed) | {origin})
-        # gauge: fix origin / first keyframe if present (ref :471-475)
-        with lock, self.timers("lm/ba_gather"):
-            prob, cam_index, pids, e_feat = self._gather_ba_problem(
-                cams, fixed, pids, store=store
-            )
+        # the window, its out-of-window observers and the gather are read
+        # under the map's lock: the observation engine is native code that
+        # releases the GIL, and the tracking thread writes observations
+        # under this lock (an unlocked read beside such a write returned
+        # keyframe ids like -1897265597 and killed the mapping thread)
+        with lock:
+            cams = [kf] + [c for c in store.ordered_covisibles(kf)]
+            cams = [c for c in cams if store.kf_valid[c]]
+            pids = store.points_in_kfs(cams)
+            if len(pids) == 0 or len(cams) < 2:
+                return
+            cam_set = set(cams)
+            # all out-of-window observers, via one native bulk query (the
+            # per-point items() loop was pure-Python per-observation cost)
+            obs_kfs, _ = store.obs.observers_of(pids)
+            fixed = sorted(
+                int(c) for c in obs_kfs
+                if int(c) not in cam_set and store.kf_valid[c])
+            # the origin keyframe is ALWAYS held fixed when it appears in
+            # the window (ref: src/Optimizer.cc:505
+            # vSE3->setFixed(mnId==0)); without this the early map's gauge
+            # drifts off the origin every local BA until enough
+            # out-of-window observers exist
+            origin = store.origin_kf
+            if origin in cam_set:
+                cams = [c for c in cams if c != origin]
+                cam_set.discard(origin)
+                fixed = sorted(set(fixed) | {origin})
+            # gauge: fix origin / first keyframe if present (ref :471-475)
+            with self.timers("lm/ba_gather"):
+                prob, cam_index, pids, e_feat = self._gather_ba_problem(
+                    cams, fixed, pids, store=store
+                )
         fx, fy, cx, cy, bf = self._intrinsics()
         # one fused device dispatch for the whole 5-iter / outlier /
         # 10-iter / classify chain, one packed pull of the results

@@ -112,7 +112,10 @@ class LoopCloser:
             self.processing = False
 
     def _process_one_inner(self):
-        kf = self.queue.pop(0)
+        try:
+            kf = self.queue.pop(0)
+        except IndexError:    # a reset emptied the queue while process_one
+            return            # waited for the lock
         # coarse map lock for the whole detect/correct pass: loop closing
         # runs on its own thread in async mode, and the reference likewise
         # serializes CorrectLoop against tracking/mapping via

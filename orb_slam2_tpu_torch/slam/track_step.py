@@ -97,6 +97,17 @@ def _step_cache_key(s, mode: str):
 
 
 _STEP_CACHE = {}
+_WARMUP_STREAMS = {}
+
+
+def _warmup_stream(device: torch.device):
+    """The one side stream a device on which every step is warmed up
+    before its capture.  cuBLAS keeps a workspace for each stream it runs
+    on (32 MiB on an H100), so a new stream a capture left 32 MiB more
+    allocated after every System's precompile."""
+    if device not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+    return _WARMUP_STREAMS[device]
 
 
 def _canonical(device) -> torch.device:
@@ -420,7 +431,7 @@ class GraphStep:
         graph = _Graph(static, staging)
         graph.load(args)
         with DEVICE_CAPTURE_LOCK:   # no other thread on the device meanwhile
-            side = torch.cuda.Stream(dev)
+            side = _warmup_stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(self.WARMUP):
@@ -886,7 +897,7 @@ class ChainRunner:
                               static["scal"])
 
         with DEVICE_CAPTURE_LOCK:   # no other thread on the device meanwhile
-            side = torch.cuda.Stream(dev)
+            side = _warmup_stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(self.WARMUP):

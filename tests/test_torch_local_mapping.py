@@ -160,3 +160,81 @@ def test_mirror_ensure_and_node_dirty():
     before = mir.f32.clone()
     assert mir.ensure(store, [0])
     assert torch.equal(mir.f32[0], before[0])   # re-uploaded, same rows
+
+
+def test_local_ba_reads_its_window_under_the_lock():
+    """Local BA reads the covisible window, its points and their
+    out-of-window observers under store.lock: the observation engine
+    releases the GIL, and the tracking thread writes observations under
+    that lock.  Each read is probed from another thread, which must not
+    get the lock."""
+    import threading
+
+    store, lm, kfs, pts = _world("port")
+    for k in kfs[:3]:
+        for f, p in enumerate(pts):
+            store.add_observation(p, k, f)
+    for k in kfs[:3]:
+        store.update_connections(k, min_weight=1)
+    held = {}
+
+    def probed(name, fn):
+        def other(got):
+            ok = store.lock.acquire(blocking=False)
+            if ok:
+                store.lock.release()
+            got.append(ok)
+
+        def call(*a, **k):
+            got = []
+            t = threading.Thread(target=other, args=(got,))
+            t.start()
+            t.join(10)
+            assert not t.is_alive()
+            held.setdefault(name, []).append(not got[0])
+            return fn(*a, **k)
+        return call
+
+    store.ordered_covisibles = probed("covisibles", store.ordered_covisibles)
+    store.points_in_kfs = probed("points", store.points_in_kfs)
+    store.obs.observers_of = probed("observers", store.obs.observers_of)
+    lm.local_bundle_adjustment(kfs[2])
+    assert held == {"covisibles": [True], "points": [True],
+                    "observers": [True]}, held
+
+
+class _ResetWhileWaiting:
+    """Stands in for the device capture lock: a Tracker.reset lands (the
+    queue is emptied) while the worker waits for it."""
+
+    def __init__(self, worker):
+        self.worker = worker
+
+    def __enter__(self):
+        self.worker.queue.clear()
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.mark.parametrize("who", ["mapper", "loop_closer"])
+def test_a_reset_while_a_worker_waits_for_the_lock(monkeypatch, who):
+    """process_one sees a keyframe queued, then waits for the device
+    capture lock; a reset that empties the queue meanwhile must leave the
+    worker idle, not kill its thread with an IndexError."""
+    from orb_slam2_tpu_torch.slam import local_mapping, loop_closing
+    from orb_slam2_tpu_torch.slam.loop_closing import LoopCloser
+
+    store, lm, kfs, _ = _world("port")
+    if who == "mapper":
+        worker, module = lm, local_mapping
+    else:
+        worker = LoopCloser(convert.settings_from_jax(make_settings()),
+                            Sensor.STEREO, store, kf_database=None,
+                            local_mapper=None, device="cpu")
+        module = loop_closing
+    worker.queue.append(kfs[-1])
+    monkeypatch.setattr(module, "DEVICE_CAPTURE_LOCK",
+                        _ResetWhileWaiting(worker))
+    worker.process_one()
+    assert not worker.queue and not worker.processing and worker.idle()

@@ -104,7 +104,8 @@ def test_every_subpackage_is_walked_and_helpers_leave_jax_out():
     assert (PKG / "mapping2d" / "__init__.py").exists()
     out = _run("import sys\n"
                f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
-               "import test_torch_ring_map, test_torch_track_blocks\n"
+               "import bench_reference, test_torch_ring_map, "
+               "test_torch_track_blocks\n"
                "print(sorted(m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'jaxlib', 'orb_slam2_tpu', 'torch')))")
     assert out.strip() == "[]", out
@@ -125,7 +126,7 @@ def test_every_module_of_the_jax_package_has_its_counterpart():
 
 
 @pytest.mark.parametrize("name", ["System", "run_slam", "LoopCloser",
-                                  "Relocalizer", "dryrun"])
+                                  "Relocalizer", "dryrun", "bench_torch"])
 def test_entry_points_ask_for_the_card(name):
     """Entry points default to the card or require the device by
     keyword; none falls back to the CPU by itself."""
@@ -145,6 +146,13 @@ def test_entry_points_ask_for_the_card(name):
 
         src = inspect.getsource(dryrun.main)
         assert 'choices=("cpu", "cuda"), default="cuda"' in src
+        return
+    if name == "bench_torch":
+        sys.path.insert(0, str(ROOT))
+        import bench_torch
+
+        src = inspect.getsource(bench_torch.main)
+        assert 'choices=("cuda", "cpu"), default="cuda"' in src
         return
     param = inspect.signature(
         {"System": System, "LoopCloser": LoopCloser,
@@ -318,11 +326,13 @@ def test_float32_matmul_is_exact():
 
 
 def test_sources_import_no_jax_and_build_flags():
-    """No module of the port (nor chip_smoke.py) imports jax or the JAX
-    package; the kernels build for sm_90a without --use_fast_math."""
+    """No module of the port (nor chip_smoke.py, nor bench_torch.py) imports
+    jax or the JAX package; the kernels build for sm_90a without
+    --use_fast_math."""
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|orb_slam2_tpu)\b",
                      re.M)
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "bench_torch.py"]
     assert len(files) > 15
     for p in files:
         assert not pat.search(p.read_text()), p
