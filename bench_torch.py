@@ -306,12 +306,16 @@ def run_pass(make_system, track_name, frames, gt_poses, *, pipelined,
         "kf_ate_m": round(ate, 3) if np.isfinite(ate) else None,
     }
     # mean mapping time per processed keyframe; the lm/ba_* timers are
-    # nested inside lm/local_ba, so summing them too would double-count
+    # nested inside lm/local_ba, so summing them too would double-count,
+    # and the pass's own span, its queue wait and its lock waits are not
+    # stages
     lm = s.local_mapper.timers
     n_kf_proc = max(lm.counts.get("lm/process_new_kf", 1), 1)
     stats["mapper_ms_per_kf"] = round(
         sum(v for k, v in lm.totals.items()
-            if not k.startswith("lm/ba_")) / n_kf_proc * 1e3, 1)
+            if not k.startswith("lm/ba_") and k not in (
+                "lm/keyframe", "lm/queue_wait", "lm/lock_wait"))
+        / n_kf_proc * 1e3, 1)
     stats["window"] = {
         "captures": {"fast_step": _captures(fast) - fast0,
                      "chain_step": chain_caps, "chain_log": log},

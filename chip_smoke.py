@@ -7,7 +7,8 @@ are built for sm_90a) and the CUDA toolkit.  It imports nothing of JAX and
 nothing of the JAX package, and exits non-zero, printing no result, when
 there is no CUDA device or any phase fails.  Phases:
 
-  1. build   compile the three Hopper kernels from csrc/ with nvcc;
+  1. build   compile the three Hopper kernels and the track step's stage
+             stamp from csrc/ with nvcc;
   2. kernels hold each kernel against its plain PyTorch version on the
              card, at the shapes of the main path (a 376x1240 KITTI-shaped
              stereo pair, 2000 features): FAST maps exactly equal, angles
@@ -45,7 +46,12 @@ there is no CUDA device or any phase fails.  Phases:
              features); exactly one FAST and one describe launch an image
              while the step is warmed up and captured, and a profiled
              replay runs exactly 2 FAST, 2 describe and 1 stereo
-             refinement kernels, and its node count is printed;
+             refinement kernels, and its node count is printed; the
+             step's 7 stage stamps (csrc/stamp.cu) launched 7 times a run
+             while warmed up and captured and run 7 times in the profiled
+             replay, increasing, inside each call's launch and wait on
+             the host's clock, their sum within 3% of a bare replay's
+             time by CUDA events;
              step times (graph, eager, eager plain),
              launches a frame and the device's busy share;
   7. system  the port's stereo System (slam/tracking.py, local mapping,
@@ -221,6 +227,7 @@ their launch counts, errors and times.
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -269,6 +276,12 @@ KERNEL_NAMES = {"fast": "fast_levels_kernel",
                 "stereo": "stereo_refine_kernel"}
 # kernel launches a stereo frame: one FAST and one describe an image
 LAUNCHES_PER_PAIR = {"fast": 2, "orb": 2, "stereo": 1}
+# the step's stage stamps (csrc/stamp.cu): calls checked, the largest
+# gap of the stages' sum from a bare replay's CUDA-event time, and the
+# slack beyond the clock offset's bracket (the device timer's tick)
+STAMP_CALLS = 20
+STAMP_EVENT_RTOL = 0.03
+STAMP_SLACK_NS = 5_000
 
 # the bounds: NVIDIA's H100 SXM data sheet, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -561,6 +574,7 @@ def track_phase(torch, np, dev, settings, scene, gpu) -> dict:
 
     # ---- the main path: frames 1.. through the graph-replayed step
     fast_cuda.launches = orb_cuda.launches = stereo_cuda.launches = 0
+    track_step.stamp_launches = 0
     frames = []
     t0 = time.perf_counter()
     for k in range(1, N_TRACK):
@@ -584,6 +598,10 @@ def track_phase(torch, np, dev, settings, scene, gpu) -> dict:
         check(c == LAUNCHES_PER_PAIR[name] * runs,
               f"kernel {name}: {c} launches in {runs} runs of the step, "
               f"expected {LAUNCHES_PER_PAIR[name]} a run")
+    n_stamps = len(track_step.STAGES) + 1
+    check(track_step.stamp_launches == n_stamps * runs,
+          f"stamp kernel: {track_step.stamp_launches} launches in {runs} "
+          f"runs of the step, expected {n_stamps} a run")
 
     errs = []
     for k, (_, res) in enumerate(frames, 1):
@@ -637,7 +655,14 @@ def track_phase(torch, np, dev, settings, scene, gpu) -> dict:
         check(prof_graph["counts"][name] == LAUNCHES_PER_PAIR[name],
               f"kernel {kname} ran {prof_graph['counts'][name]} times in a "
               f"replay, expected {LAUNCHES_PER_PAIR[name]}")
-    print(f"[track] kernels in one profiled replay: {prof_graph['counts']}")
+    stamps_run = sum(c for name, (c, _) in
+                     prof_graph["device_ms_by_name"].items()
+                     if "stamp_kernel" in name)
+    check(stamps_run == n_stamps, f"stamp kernel ran {stamps_run} times in "
+          f"a replay, expected {n_stamps}")
+    print(f"[track] kernels in one profiled replay: {prof_graph['counts']}, "
+          f"stamps {stamps_run}")
+    stamp_check(torch, dev, step, last_inputs)
     for name, prof in (("replay", prof_graph), ("eager step", prof_eager)):
         print(f"[track] profiled {name}: {prof['n_device']} device kernels "
               f"and copies (graph nodes run); launch calls "
@@ -715,6 +740,84 @@ def track_phase(torch, np, dev, settings, scene, gpu) -> dict:
     return {"launches": launches, "times": times,
             "replay_nodes": prof_graph["n_device"],
             "frames": [args for args, _ in frames]}
+
+
+def stamp_check(torch, dev, step, inputs) -> dict:
+    """The track step's stage stamps (slam/track_step.py STAGES,
+    csrc/stamp.cu) on the card.  The offset of the device's clock from
+    the host's is bracketed by lone stamps (each read less the host's
+    clock after its synchronisation, and less the host's clock before its
+    launch); then, over STAMP_CALLS calls of the graph step on `inputs`
+    with its parts timed as the tracker times them, the stamps increase
+    strictly and, moved onto the host's clock, lie inside the call's
+    `launch` and `device_wait`; and over as many bare replays of its
+    graph, the stages' sum is within STAMP_EVENT_RTOL of the replay's
+    time by CUDA events."""
+    from types import SimpleNamespace
+
+    from orb_slam2_tpu_torch import utils
+    from orb_slam2_tpu_torch.slam import track_step
+
+    n_stamps = len(track_step.STAGES) + 1
+    probe = SimpleNamespace(stamps=torch.zeros(
+        track_step.N_STAMPS, dtype=torch.int64, device=dev))
+    lo, hi = -math.inf, math.inf
+    for _ in range(50):
+        torch.cuda.synchronize()
+        a = time.perf_counter_ns()
+        track_step._stamp(probe, 0)
+        torch.cuda.synchronize()
+        b = time.perf_counter_ns()
+        g = int(probe.stamps[0].item())
+        lo, hi = max(lo, g - b), min(hi, g - a)
+    offset = (lo + hi) // 2
+    slack = abs(hi - lo) // 2 + STAMP_SLACK_NS
+
+    timers = utils.StageTimers()
+    stages = []
+    for i in range(STAMP_CALLS):
+        out = step(*inputs, spans=timers)
+        t = list(out.stamps)
+        check(all(x == 0 for x in t[n_stamps:]), f"stamps past the last "
+              f"stage written: {t}")
+        t = t[:n_stamps]
+        check(all(b > a for a, b in zip(t, t[1:])),
+              f"call {i}: stamps not increasing: {t}")
+        ring = list(timers.ring)
+        launch = next(s for s in reversed(ring) if s[2] == "launch")
+        wait = next(s for s in reversed(ring) if s[2] == "device_wait")
+        first, last = t[0] - offset, t[-1] - offset
+        check(first >= launch[5] - slack and last <= wait[6] + slack,
+              f"call {i}: stamps at {first - launch[5]} .. {last - wait[6]} "
+              f"ns from the launch's start .. the wait's end (slack "
+              f"{slack} ns)")
+        stages.append([(b - a) * 1e-6 for a, b in zip(t, t[1:])])
+
+    key = step._key(tuple(track_step._as_input(a) for a in inputs))
+    graph = step._graphs[key]
+    ratios = []
+    for _ in range(STAMP_CALLS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        graph.graph.replay()
+        e1.record()
+        e1.synchronize()
+        t = graph.out.stamps.tolist()[:n_stamps]
+        ratios.append((t[-1] - t[0]) * 1e-6 / e0.elapsed_time(e1))
+    check(all(abs(r - 1.0) <= STAMP_EVENT_RTOL for r in ratios),
+          f"the stages' sum against a replay's CUDA-event time: "
+          f"{min(ratios):.4f} .. {max(ratios):.4f}")
+    med = [statistics.median(col) for col in zip(*stages)]
+    print(f"[track] stamps: clock offset bracket {abs(hi - lo) / 1e3:.1f} "
+          f"us; {STAMP_CALLS} calls inside their launch and wait; stages' "
+          f"sum / CUDA-event time of a bare replay {min(ratios):.4f} .. "
+          f"{max(ratios):.4f}; median ms " + ", ".join(
+              f"{n} {v:.3f}" for n, v in zip(track_step.STAGES, med)))
+    return {"stage_ms": dict(zip(track_step.STAGES, med)),
+            "event_ratio": [min(ratios), max(ratios)],
+            "offset_bracket_us": abs(hi - lo) / 1e3}
 
 
 def golden_phase(np, dev) -> dict:
@@ -2054,9 +2157,9 @@ def mono_track_check(torch, np, dev, settings, scene, poses,
             return a.clone()
         return None if a is None else np.array(a, copy=True)
 
-    def recording(*args):
+    def recording(*args, **kw):
         kept = [keep(a) for a in args]
-        out = step(*args)
+        out = step(*args, **kw)
         recorded.append((kept, out.f32_pack.clone(), out.desc.clone()))
         return out
 

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("fast.cu", "orb.cu", "stereo.cu")
+SOURCES = ("fast.cu", "orb.cu", "stereo.cu", "stamp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -50,6 +50,8 @@ _SIGNATURES = {
     # min_disp, max_disp, n, u_right, depth, sad, scores (or null), stream
     "orb_stereo_refine": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                           _I, _P, _P, _P, _P, _P),
+    # buf (int64), slot, stream
+    "orb_stamp": (_P, _I, _P),
 }
 
 

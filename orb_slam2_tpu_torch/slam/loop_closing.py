@@ -122,7 +122,8 @@ class LoopCloser:
         # mMutexMapUpdate + LocalMapping::RequestStop (src/LoopClosing.cc:
         # 402-435).  The long GBA that follows does NOT hold the lock —
         # it runs chunked on the GBA thread (see global_ba.GlobalBA).
-        with self.store.lock:
+        # Its spans carry the keyframe's id.
+        with self.store.lock, self.timers("loop/keyframe", id=kf):
             if not self.store.kf_valid[kf]:
                 return
             self.store.kf_not_erase[kf] = True

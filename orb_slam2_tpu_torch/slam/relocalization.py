@@ -11,8 +11,6 @@ on the host, as in the JAX package, so both draw the same minimal sets.
 
 from __future__ import annotations
 
-import os as _os
-
 import numpy as np
 import torch
 
@@ -23,8 +21,6 @@ from orb_slam2_tpu_torch.solvers import epnp
 from orb_slam2_tpu_torch.utils import (
     bucket_size, pad_rows, torch_device, upload,
 )
-
-_DEBUG_TRACK = _os.environ.get("ORB_DEBUG_TRACK", "0") == "1"
 
 
 class Relocalizer:
@@ -54,9 +50,6 @@ class Relocalizer:
             return False
         candidates = self.db.detect_reloc_candidates(
             frame.feats.word, store)
-        if _DEBUG_TRACK:
-            print(f"[dbg]   reloc f{frame.frame_id} candidates="
-                  f"{candidates[:8]}", flush=True)
         if not candidates:
             return False
 
@@ -76,9 +69,6 @@ class Relocalizer:
             )
             idx, dist, ok = matching.to_host(m)
             ok = ok & kf_has
-            if _DEBUG_TRACK:
-                print(f"[dbg]   reloc kf={kf} bow={int(ok.sum())}",
-                      flush=True)
             if int(ok.sum()) < 15:
                 continue
 
@@ -114,8 +104,6 @@ class Relocalizer:
                 res.Tcw.reshape(-1), res.inliers.float(),
                 res.success.float().reshape(1)]).cpu().numpy()
             if not packed[-1] > 0.5:
-                if _DEBUG_TRACK:
-                    print(f"[dbg]   reloc kf={kf} ransac FAILED", flush=True)
                 continue
             frame.Tcw = packed[:16].reshape(4, 4).astype(np.float32)
             frame.bindings[:] = -1
@@ -168,8 +156,6 @@ class Relocalizer:
                 n_good = tracker._optimize_pose(frame)
                 tracker._discard_outliers(frame)
 
-            if _DEBUG_TRACK:
-                print(f"[dbg]   reloc kf={kf} n_good={n_good}", flush=True)
             if n_good >= 50:
                 return True
         return False

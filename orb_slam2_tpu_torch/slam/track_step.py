@@ -36,6 +36,8 @@ inside the step would be a copy that a graph cannot capture.
 
 from __future__ import annotations
 
+import contextlib
+import time
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
@@ -43,7 +45,9 @@ import numpy as np
 import torch
 
 from orb_slam2_tpu_torch.geometry import se3
-from orb_slam2_tpu_torch.ops import frontend, hamming, matching, stereo
+from orb_slam2_tpu_torch.ops import (
+    cuda_build, frontend, hamming, matching, stereo,
+)
 from orb_slam2_tpu_torch.solvers import pose_lm
 from orb_slam2_tpu_torch.utils import DEVICE_CAPTURE_LOCK
 
@@ -51,10 +55,24 @@ from orb_slam2_tpu_torch.utils import DEVICE_CAPTURE_LOCK
 class TrackOut(NamedTuple):
     """Outputs of one fused tracking step: everything float-packable in
     one float32 tensor (one device-to-host copy, the int32 descriptor
-    words' bits at its tail) plus the descriptors as a device tensor."""
+    words' bits at its tail) plus the descriptors as a device tensor,
+    and the step's stage stamps (see STAGES)."""
 
     f32_pack: torch.Tensor    # see unpack_track_out for layout
     desc: torch.Tensor        # (N,8) int32 holding the uint32 words' bits
+    stamps: Optional[torch.Tensor] = None   # (N_STAMPS,) int64 ns; a list
+                                            # of ints from GraphStep
+
+
+# The step's device stages, in order.  The step writes a stamp at its
+# start and after each stage (`_stamp`): on a card the device's
+# %globaltimer from a one-thread kernel captured into the graph
+# (csrc/stamp.cu), on the CPU, where the eager step is synchronous, the
+# host's perf_counter_ns.  Stage i runs from stamp i to stamp i + 1.
+STAGES = ("step/frontend", "step/match_last", "step/pose_lm1",
+          "step/match_local", "step/pose_lm2", "step/pack")
+N_STAMPS = 8            # 64 bytes; slots past len(STAGES) + 1 stay 0
+stamp_launches = 0      # csrc/stamp.cu launches since the last reset
 
 
 class TrackResult(NamedTuple):
@@ -165,7 +183,23 @@ def _step_consts(settings, mode: str, device: torch.device,
         extract_kw=dict(n_features=s.n_features, n_levels=s.n_levels,
                         scale_factor=s.scale_factor, ini_th=s.ini_th_fast,
                         min_th=s.min_th_fast, plain=plain),
+        stamps=torch.zeros(N_STAMPS, dtype=torch.int64, device=device),
     )
+
+
+def _stamp(c, slot: int) -> None:
+    """Stamp the time the step reaches `slot` into c.stamps[slot]: on a
+    card one launch of csrc/stamp.cu on the current stream (inside a
+    capture it becomes a node of the graph), on the CPU the host clock."""
+    global stamp_launches
+    buf = c.stamps
+    if buf.is_cuda:
+        stamp_launches += 1
+        cuda_build.check_error(cuda_build.library().orb_stamp(
+            buf.data_ptr(), slot, cuda_build.stream_ptr(buf.device)),
+            "orb_stamp")
+    else:
+        buf[slot] = time.perf_counter_ns()
 
 
 def _frontend(c, img_l, img_r):
@@ -260,8 +294,10 @@ def _match_and_solve(c, feats, ur, T_pred, fwd, bwd, th_local,
         return pose_lm.PoseObs(pts, uv, inv_s2, bound & f_val)
 
     obs1 = pose_obs(assign, last_pts)
+    _stamp(c, 2)
     T1, inl1, _ = pose_lm.optimize_pose(T_pred, obs1, fx, fy, cx, cy, bf,
                                         4, 10)
+    _stamp(c, 3)
     # drop outlier bindings (ref: Tracking.cc:905-918)
     assign = torch.where(inl1 | (assign < 0), assign, -1)
 
@@ -309,8 +345,11 @@ def _match_and_solve(c, feats, ur, T_pred, fwd, bwd, th_local,
 
     # ---- 5. pose optimization 2 -----------------------------------------
     all_pts = torch.cat([last_pts, loc_pts], 0)   # (L+M, 3)
+    obs2 = pose_obs(assign, all_pts)
+    _stamp(c, 4)
     T2, inl2, n_in = pose_lm.optimize_pose(
-        T1, pose_obs(assign, all_pts), fx, fy, cx, cy, bf, 4, 10)
+        T1, obs2, fx, fy, cx, cy, bf, 4, 10)
+    _stamp(c, 5)
     return SimpleNamespace(
         T2=T2, inlier=inl2 & (assign >= 0), n_in=n_in, assign=assign,
         vis_l=vis_l, n_mm=n_mm, n1=n1, vis=vis, use2=use2,
@@ -356,7 +395,14 @@ def _build_track_step(settings, mode: str, device: torch.device,
         loc_f32,                      # (M, 8) [pts xyz, normal xyz, min, max]
         loc_desc,                     # (M, 8) int32
         loc_excl=None,                # (M,) u8: 1 = skip this candidate
+        spans=None,                   # see GraphStep: the run as "launch"
     ) -> TrackOut:
+        if spans is not None:
+            with spans("launch"):
+                return step(img_l, img_r, scal, last_f32, last_desc,
+                            last_oct, last_angle, loc_f32, loc_desc,
+                            loc_excl)
+        _stamp(c, 0)
         # unpack the scalar block (packed on host into ONE upload)
         T_pred = scal[:16].reshape(4, 4)
         fwd = scal[16] > 0.5
@@ -368,6 +414,7 @@ def _build_track_step(settings, mode: str, device: torch.device,
             loc_mask = loc_mask & (loc_excl == 0)
 
         feats, ur, depth = _frontend(c, img_l, img_r)
+        _stamp(c, 1)
         r = _match_and_solve(
             c, feats, ur, T_pred, fwd, bwd, th_local,
             last_f32[:, :3], last_f32[:, 3] > 0.5, last_oct, last_angle,
@@ -375,7 +422,8 @@ def _build_track_step(settings, mode: str, device: torch.device,
             loc_f32[:, 7], loc_desc, loc_mask, relative_widen=False)
         f32_pack = _pack(r.T2, r.n_mm, r.n_in, feats, ur, depth, r.assign,
                          r.inlier, r.vis_l)
-        return TrackOut(f32_pack, feats.desc)
+        _stamp(c, 6)
+        return TrackOut(f32_pack, feats.desc, c.stamps.clone())
 
     return step
 
@@ -386,10 +434,16 @@ class GraphStep:
 
     A call copies its inputs into the graph's static device buffers
     (numpy arrays through pinned host staging, all non-blocking), replays
-    the graph, copies `f32_pack` into pinned host memory without
-    blocking, and synchronises once.  It returns a TrackOut whose
-    `f32_pack` is a host tensor and whose `desc` is a device tensor of
-    its own (copies, so the next replay does not overwrite them).
+    the graph, copies `f32_pack` and the stamps into pinned host memory
+    without blocking, and synchronises once.  It returns a TrackOut whose
+    `f32_pack` is a host tensor, whose `stamps` are a list of ints (read
+    without a tensor op, which would let another thread take the
+    interpreter) and whose `desc` is a device tensor of its own (copies,
+    so the next replay does not overwrite them).  Given `spans`, a function of a part's name that returns the
+    context timing it, a call times its three parts: "upload" (the
+    copies in), "launch" (the cudaGraphLaunch and the copies out
+    enqueued) and "device_wait" (the synchronisation).  The eager step
+    takes the same `spans` and times its whole run as "launch".
 
     The first call for a new shape warms the step up eagerly on a side
     stream (that first run builds the kernels' library and uploads the
@@ -443,10 +497,14 @@ class GraphStep:
         self.captures += 1
         graph.host = torch.empty(graph.out.f32_pack.shape,
                                  dtype=torch.float32, pin_memory=True)
+        graph.stamps = torch.empty(N_STAMPS, dtype=torch.int64,
+                                   pin_memory=True)
         return graph
 
     def __call__(self, img_l, img_r, scal, last_f32, last_desc, last_oct,
-                 last_angle, loc_f32, loc_desc, loc_excl=None) -> TrackOut:
+                 last_angle, loc_f32, loc_desc, loc_excl=None,
+                 spans=None) -> TrackOut:
+        span = spans if spans is not None else _no_span
         args = tuple(_as_input(a) for a in (
             img_l, img_r, scal, last_f32, last_desc, last_oct, last_angle,
             loc_f32, loc_desc, loc_excl))
@@ -456,12 +514,20 @@ class GraphStep:
             if graph is None:   # the capture leaves these inputs loaded
                 graph = self._graphs[key] = self._capture(args)
             else:
-                graph.load(args)
-            graph.graph.replay()
-            graph.host.copy_(graph.out.f32_pack, non_blocking=True)
-            desc = graph.out.desc.clone()
-            torch.cuda.current_stream(self.device).synchronize()
-        return TrackOut(graph.host.clone(), desc)
+                with span("upload"):
+                    graph.load(args)
+            with span("launch"):
+                graph.graph.replay()
+                graph.host.copy_(graph.out.f32_pack, non_blocking=True)
+                graph.stamps.copy_(graph.out.stamps, non_blocking=True)
+                desc = graph.out.desc.clone()
+            with span("device_wait"):
+                torch.cuda.current_stream(self.device).synchronize()
+        return TrackOut(graph.host.clone(), desc, graph.stamps.tolist())
+
+
+def _no_span(part):
+    return contextlib.nullcontext()
 
 
 def _as_input(a):
@@ -482,6 +548,7 @@ class _Graph:
         self.graph = None
         self.out: Optional[TrackOut] = None
         self.host = None
+        self.stamps = None
 
     def load(self, args) -> None:
         """Copy a frame's inputs into the static buffers, non-blocking:
@@ -588,6 +655,7 @@ def _build_track_step_chained(settings, mode: str, device: torch.device,
              mir_desc,                # (P, 8) int32
              cand_pids,               # (M,) int32 local candidates, -1 = pad
              scal):                   # (2,) f32 [th_local, unused]
+        _stamp(c, 0)
         th_local = scal[0]
         cap = mir_f32.shape[0]
 
@@ -618,6 +686,7 @@ def _build_track_step_chained(settings, mode: str, device: torch.device,
         bwd = c.is_stereo & (-vz > c.baseline)
 
         feats, ur, depth = _frontend(c, img_l, img_r)
+        _stamp(c, 1)
         # The doubled motion-model window opens when matches are weak in
         # ABSOLUTE terms (ref: Tracking.cc:842-847 does th -> 2*th below
         # 20 matches) or RELATIVE to how many carried points project
@@ -654,6 +723,7 @@ def _build_track_step_chained(settings, mode: str, device: torch.device,
         f32_pack = _pack(T2, r.n_mm, r.n_in, feats, ur, depth,
                          feat_pid,                       # pid, not slot
                          inlier, r.vis_l, tail=diag)
+        _stamp(c, 6)
 
         # chain-poisoning guard: a weak pose solve (few inliers) must not
         # become the next frame's anchor — carry the motion-model
@@ -683,7 +753,7 @@ def _build_track_step_chained(settings, mode: str, device: torch.device,
             T_cur=torch.where(trust, T2, T_pred),
             velocity=torch.where(trust, v_damped, velocity),
         )
-        return TrackOut(f32_pack, feats.desc), new_chain
+        return TrackOut(f32_pack, feats.desc, c.stamps.clone()), new_chain
 
     return step
 

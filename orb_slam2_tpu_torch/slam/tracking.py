@@ -25,7 +25,6 @@ median depth) and then tracks with the fused step's mono mode.
 from __future__ import annotations
 
 import enum
-import os as _os
 import time
 from dataclasses import dataclass
 from typing import ClassVar, List, Optional
@@ -45,11 +44,6 @@ from orb_slam2_tpu_torch.solvers import initializer, pose_lm
 from orb_slam2_tpu_torch.utils import (
     DEVICE_CAPTURE_LOCK, StageTimers, StickyBuckets, pad_rows, torch_device,
 )
-
-
-# per-frame tracking diagnostics (ORB_DEBUG_TRACK=1): match counts,
-# fallback triggers, chain re-anchors — for perf/robustness triage
-_DEBUG_TRACK = _os.environ.get("ORB_DEBUG_TRACK", "0") == "1"
 
 
 def innovation_px(fx: float, dt_m: float, drot_deg: float,
@@ -387,26 +381,36 @@ class Tracker:
     def _track_fast(self, img_l, img_r, timestamp) -> Optional[np.ndarray]:
         store = self.store
         last = self.last_frame
-        with store.lock, self.timers("fast/prep"):
+        timers = self.timers
+        with timers.locked(store.lock, "track/lock_wait"), \
+                timers("fast/prep", cpu=True):
             (scal, last_f32, last_desc, cand, last_pids,
              loc_f32_dev, loc_desc_dev, excl) = self._fast_prep(last)
         step = self._get_fast_step()
-        with self.timers("fast/dispatch"):
-            img_l_d = self.builder._upload(img_l)
-            if img_r is None:
-                img_r_d = img_l_d
-            elif self.sensor == Sensor.RGBD:
-                img_r_d = self.builder._upload_depth(img_r)
-            else:
-                img_r_d = self.builder._upload(img_r)
-            out = step(
-                img_l_d, img_r_d, self._step_in(scal),
-                self._step_in(last_f32), self._step_in(last_desc),
-                last.feats.device("octave"), last.feats.device("angle"),
-                loc_f32_dev, loc_desc_dev, self._step_in(excl),
-            )
+        with timers("fast/dispatch"):
+            with timers("fast/upload"):
+                img_l_d = self.builder._upload(img_l)
+                if img_r is None:
+                    img_r_d = img_l_d
+                elif self.sensor == Sensor.RGBD:
+                    img_r_d = self.builder._upload_depth(img_r)
+                else:
+                    img_r_d = self.builder._upload(img_r)
+                args = (img_l_d, img_r_d, self._step_in(scal),
+                        self._step_in(last_f32), self._step_in(last_desc),
+                        last.feats.device("octave"),
+                        last.feats.device("angle"), loc_f32_dev,
+                        loc_desc_dev, self._step_in(excl))
+            # a GraphStep times its own copies in, launch and wait as
+            # fast/upload, fast/launch, fast/device_wait; the eager step
+            # its whole run, as fast/launch
+            out = step(*args, spans=self._step_span)
         return self._fast_finish(out, last, cand, last_pids, timestamp,
                                  len(excl))
+
+    def _step_span(self, part: str):
+        """The span of one part of the step's call (track_step.GraphStep)."""
+        return self.timers("fast/" + part)
 
     def _fast_prep(self, last):
         """Host-side input assembly for the fused step (under store.lock)."""
@@ -479,11 +483,24 @@ class Tracker:
         )
         with self.timers("fast/pull"):
             res, desc_np = ts.unpack_track_out(out, n_feat, M)
+        self.timers.record_stamps(out.stamps, ts.STAGES)
         # the fast path re-anchors from host state every frame — blind-
         # extrapolation drift cannot exist; clear any stale pipelined flags
         self._drift_soft = self._drift_reject = False
         self._drift_salvaged = False
 
+        with self.timers("fast/bind", cpu=True):
+            frame, bindings = self._fast_frame(res, desc_np, out, timestamp,
+                                               cand, last_pids, n_feat)
+        with self.timers.locked(store.lock, "track/lock_wait"), \
+                self.timers("fast/apply", cpu=True):
+            return self._apply_fast_result(frame, last, res, cand,
+                                           last_pids, bindings)
+
+    def _fast_frame(self, res, desc_np, out, timestamp, cand, last_pids,
+                    n_feat):
+        """The current Frame from a pulled step result, and its bindings
+        to map points."""
         # build the Frame from the step outputs (no second extraction)
         ff = FrameFeatures(
             xy=res.xy, xy_raw=res.xy, ur=res.ur, depth=res.depth,
@@ -517,14 +534,7 @@ class Tracker:
         bindings[rows] = cand[loc_slots[in_range]]
         frame.bindings = bindings
         frame.outlier = (bindings >= 0) & ~res.inlier
-
-        store.lock.acquire()
-        try:
-            with self.timers("fast/apply"):
-                return self._apply_fast_result(frame, last, res, cand,
-                                               last_pids, bindings)
-        finally:
-            store.lock.release()
+        return frame, bindings
 
     def _apply_fast_result(self, frame, last, res, cand, last_pids,
                            bindings):
@@ -536,15 +546,6 @@ class Tracker:
         # through the modular reference-KF path below.
         drift_reject = self._drift_reject
         ok = (res.n_matches_mm >= 20) and not drift_reject
-        if _DEBUG_TRACK and drift_reject:
-            print(f"[dbg] f{frame.frame_id} DRIFT-REJECT "
-                  f"innov={self._innov_px:.1f}px", flush=True)
-        if _DEBUG_TRACK:
-            nb = int((bindings >= 0).sum())
-            print(f"[dbg] f{frame.frame_id} mm={res.n_matches_mm} "
-                  f"dev_in={res.n_inliers} bound={nb} "
-                  f"cand={int((cand >= 0).sum())} "
-                  f"kfs={int(store.kf_valid.sum())}", flush=True)
         if ok:
             # visibility / found statistics (ref: SearchLocalPoints +
             # TrackLocalMap tail)
@@ -567,6 +568,7 @@ class Tracker:
         self._fallback_used = not ok
         if not ok:
             # fall back to the modular path (reference-KF tracking)
+            self.timers.counters["fast_path_fallbacks"] += 1
             saved = (None if frame.Tcw is None else frame.Tcw.copy(),
                      frame.bindings.copy(), frame.outlier.copy())
             self._assign_frame_bow(frame)
@@ -605,15 +607,7 @@ class Tracker:
                     bound_now = frame.bindings[frame.bindings >= 0]
                     store.pt_visible[np.unique(bound_now)] += 1
                     store.pt_found[inl_ids] += 1
-                if _DEBUG_TRACK:
-                    print(f"[dbg] f{frame.frame_id} SALVAGE dev pose "
-                          f"n_map={self.n_inliers} -> "
-                          f"{'ok' if ok else 'FAIL'}", flush=True)
 
-        if _DEBUG_TRACK and self._fallback_used:
-            print(f"[dbg] f{frame.frame_id} FALLBACK -> "
-                  f"{'ok' if ok else 'FAIL'} inl={self.n_inliers}",
-                  flush=True)
         if not ok:
             # mirror the modular path's LOST warning (tracking.py _track),
             # with this frame's own counts (the JAX package prints the
@@ -649,7 +643,7 @@ class Tracker:
                 # (LocalMapper.process_one, ref: KeyFrame::ComputeBoW in
                 # LocalMapping::ProcessNewKeyFrame) — the ~30 ms device
                 # descend does not belong on the per-frame critical path
-                with self.timers("create_keyframe"):
+                with self.timers("create_keyframe", cpu=True):
                     self._create_new_keyframe()
             out_mask = frame.outlier & (frame.bindings >= 0)
             frame.bindings[out_mask] = -1
@@ -660,7 +654,8 @@ class Tracker:
             self._frames_since_map_refresh += 1
             if (self.last_kf_frame_id == frame.frame_id
                     or self._frames_since_map_refresh >= 4):
-                self._update_local_map()
+                with self.timers("track/local_map"):
+                    self._update_local_map()
                 self._frames_since_map_refresh = 0
         else:
             self.state = State.LOST
@@ -817,12 +812,6 @@ class Tracker:
             self._chain_age = 0
             self._chain_dirty = max(self._chain_dirty - 1, 0)
             self.pipe_stats["anchors"] += 1
-            if _DEBUG_TRACK:
-                nc = int((self._chain.pid >= 0).sum())
-                print(f"[dbg] ANCHOR at last_frame="
-                      f"{self.last_frame.frame_id} carried={nc} "
-                      f"local={len(self.local_pts)} "
-                      f"dirty={self._chain_dirty}", flush=True)
         else:
             self.pipe_stats["blind"] += 1
 
@@ -935,13 +924,6 @@ class Tracker:
             map_moved=map_moved, params=self.gate_params)
         self._drift_salvaged = False
 
-        if _DEBUG_TRACK:
-            d = diag
-            print(f"[dbg]   chain-diag n_th={int(d[0])} vis={int(d[1])} "
-                  f"wide={int(d[2])} inl1={int(d[3])} dt={d[4]:.3f}m "
-                  f"drot={d[5]:.2f}deg innov={innov_px:.1f}px "
-                  f"map_moved={int(map_moved)}",
-                  flush=True)
         last = self.last_frame
         cand = meta["cand"]
 
@@ -1105,7 +1087,8 @@ class Tracker:
         again).  The JAX package runs this path unlocked; under the async
         scheduler its map reads and writes then race the mapping thread
         in the observation engine."""
-        with DEVICE_CAPTURE_LOCK, self.store.lock:
+        with self.timers.locked(DEVICE_CAPTURE_LOCK, "track/lock_wait"), \
+                self.timers.locked(self.store.lock, "track/lock_wait"):
             return self._track_locked(frame)
 
     def _track_locked(self, frame: Frame) -> Optional[np.ndarray]:
@@ -1520,9 +1503,6 @@ class Tracker:
         )
         idx, _, ok = matching.to_host(m)
         ok = ok & kf_has
-        if _DEBUG_TRACK:
-            print(f"[dbg]   track_ref_kf kf={kf} bow_matches="
-                  f"{int(ok.sum())}", flush=True)
         if int(ok.sum()) < 15:
             return False
         frame.bindings[:] = -1
@@ -1533,8 +1513,6 @@ class Tracker:
         )
         self._optimize_pose(frame)
         n_map = self._discard_outliers(frame)
-        if _DEBUG_TRACK:
-            print(f"[dbg]   track_ref_kf n_map={n_map}", flush=True)
         return n_map >= 10
 
     def _update_last_frame(self):
@@ -1780,19 +1758,19 @@ class Tracker:
                and (self.n_inliers < ref_matches * 0.25 or need_close))
         c2 = ((self.n_inliers < ref_matches * th_ref or need_close)
               and self.n_inliers > 15)
-        if _DEBUG_TRACK and (c1a or c1b or c1c) and not c2:
-            print(f"[dbg]   need_kf DENIED c2: inl={self.n_inliers} "
-                  f"ref_matches={ref_matches} th={th_ref} "
-                  f"close={n_tracked_close}/{n_nontracked_close}",
-                  flush=True)
-        if (c1a or c1b or c1c) and c2:
-            if idle:
-                return True
-            if self.local_mapper is not None:
-                self.local_mapper.interrupt_ba()
-                if self.sensor != Sensor.MONOCULAR:
-                    return self.local_mapper.queue_size() < 3
+        if not (c1a or c1b or c1c):
             return False
+        if not c2:
+            self.timers.counters["keyframes_denied_c2"] += 1
+            return False
+        if idle:
+            return True
+        if self.local_mapper is not None:
+            self.local_mapper.interrupt_ba()
+            if (self.sensor != Sensor.MONOCULAR
+                    and self.local_mapper.queue_size() < 3):
+                return True
+        self.timers.counters["keyframes_refused_busy"] += 1
         return False
 
     def _unproject(self, frame: Frame, i: int) -> np.ndarray:
@@ -1851,8 +1829,6 @@ class Tracker:
                 store.compute_distinctive_batch(born)
                 store.update_points_batch(born, self.scale_factors)
         self.last_kf_frame_id = frame.frame_id
-        if _DEBUG_TRACK:
-            print(f"[dbg] f{frame.frame_id} KF kf={kf}", flush=True)
         if self.local_mapper is not None:
             self.local_mapper.insert_keyframe(kf)
 

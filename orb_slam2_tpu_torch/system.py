@@ -184,28 +184,37 @@ class System:
     # per-frame entries (ref: System::Track* src/System.cc:117-283)
     # ------------------------------------------------------------------
     def track_monocular(self, img: np.ndarray, timestamp: float):
-        self._apply_requests()
-        T = self.tracker.grab_monocular(img, timestamp)
-        if self.viewer is not None:
-            self.viewer.push_frame(img)
-        self._pump()
+        with self._frame_span():
+            self._apply_requests()
+            T = self.tracker.grab_monocular(img, timestamp)
+            if self.viewer is not None:
+                self.viewer.push_frame(img)
+            self._pump()
         return T
 
     def track_stereo(self, img_l, img_r, timestamp: float):
-        self._apply_requests()
-        T = self.tracker.grab_stereo(img_l, img_r, timestamp)
-        if self.viewer is not None:
-            self.viewer.push_frame(img_l)
-        self._pump()
+        with self._frame_span():
+            self._apply_requests()
+            T = self.tracker.grab_stereo(img_l, img_r, timestamp)
+            if self.viewer is not None:
+                self.viewer.push_frame(img_l)
+            self._pump()
         return T
 
     def track_rgbd(self, img, depth, timestamp: float):
-        self._apply_requests()
-        T = self.tracker.grab_rgbd(img, depth, timestamp)
-        if self.viewer is not None:
-            self.viewer.push_frame(img)
-        self._pump()
+        with self._frame_span():
+            self._apply_requests()
+            T = self.tracker.grab_rgbd(img, depth, timestamp)
+            if self.viewer is not None:
+                self.viewer.push_frame(img)
+            self._pump()
         return T
+
+    def _frame_span(self):
+        """The root span of a track_* call, `frame`, with the id of the
+        frame it builds; every span of the call on this thread nests in
+        it."""
+        return self.tracker.timers("frame", id=self.builder._next_id)
 
     def prefetch(self, *imgs) -> None:
         """Start the device uploads of the NEXT frame's images (call
@@ -234,6 +243,12 @@ class System:
         self._pump()
 
     def _pump(self):
+        with self.tracker.timers("system/pump"):
+            self._hand_over()
+
+    def _hand_over(self):
+        """The keyframes and loops queued by the frame go to the mapper
+        and the loop closer: inline (sync) or by waking their threads."""
         if self.store is not self.tracker.store:
             # tracker reset swapped in a fresh map
             self.store = self.tracker.store
@@ -345,7 +360,8 @@ class System:
 
     def stats(self) -> dict:
         """Counters for observability (SURVEY §5.5): map size, loop and
-        GBA lifecycle, resets, relocalizations."""
+        GBA lifecycle, resets, relocalizations, and the counters the
+        tracker and the mapper keep beside their spans (`_counters`)."""
         lc = self.loop_closer
         gba = lc.gba if lc is not None else None
         return {
@@ -358,6 +374,50 @@ class System:
             "gba_runs_aborted": gba.runs_aborted if gba is not None else 0,
             "resets": self.tracker.resets,
             "relocalizations": self.tracker.relocalizations,
+            **self._counters(),
+        }
+
+    def _counters(self) -> dict:
+        """keyframes_inserted: into the mapper's queue;
+        keyframes_refused_busy: wanted while the mapper was busy and
+        refused after its local BA was interrupted (its queue full, or
+        monocular); keyframes_denied_c2: wanted by the frame counts but
+        denied by the inlier test c2 (ref: Tracking.cc:1044-1046);
+        fast_path_fallbacks: replayed frames re-tracked on the modular
+        path; local_ba_interrupted: local BAs that dropped their second
+        round for a keyframe inserted since their pass began;
+        mapper_queue_max: the mapper's longest queue; graph_captures: the
+        CUDA graphs captured by the tracker's fast and chained steps (a
+        fast step is shared by every System of the same settings in the
+        process)."""
+        tc = self.tracker.timers.counters
+        mc = self.local_mapper.timers.counters
+        t = self.tracker
+        captures = (getattr(t._fast_step, "captures", 0)
+                    + getattr(t._chain_step, "captures", 0))
+        return {
+            "keyframes_inserted": mc.get("keyframes_inserted", 0),
+            "keyframes_refused_busy": tc.get("keyframes_refused_busy", 0),
+            "keyframes_denied_c2": tc.get("keyframes_denied_c2", 0),
+            "fast_path_fallbacks": tc.get("fast_path_fallbacks", 0),
+            "local_ba_interrupted": mc.get("local_ba_interrupted", 0),
+            "mapper_queue_max": mc.get("mapper_queue_max", 0),
+            "graph_captures": captures,
+        }
+
+    def trace_snapshot(self) -> dict:
+        """The spans still in the tracker's, the mapper's and the loop
+        closer's rings (dicts of `utils.SPAN_FIELDS`, oldest first) and
+        the counters of `stats()`, as plain data.  It copies every ring:
+        read it once, when a run ends."""
+        lc = self.loop_closer
+        return {
+            "spans": {
+                "tracker": self.tracker.timers.spans(),
+                "mapper": self.local_mapper.timers.spans(),
+                "loop": lc.timers.spans() if lc is not None else [],
+            },
+            "counters": self._counters(),
         }
 
     def get_tracked_map_points(self) -> np.ndarray:
