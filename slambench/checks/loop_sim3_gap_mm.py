@@ -1,0 +1,17 @@
+"""`loop_sim3_gap_mm`: the widest camera-centre distance, in mm, over the
+judged loops, between the current keyframe's Scw from the program's
+refined S12 and from the frozen OptimizeSim3 (reference/sim3.py) on the
+same matches from the same start.  The control is the reference in
+bfloat16 in the program's place (harness/loops.py)."""
+
+from harness import loops
+
+catcher = loops.LoopCatcher
+
+
+def read(j):
+    return loops.readings(j)["loop_sim3_gap_mm"]
+
+
+def control(j):
+    return loops.readings(j)["control"]["loop_sim3_gap_mm"]

@@ -16,8 +16,11 @@ bfloat16, the precision below the float32 the configuration states:
                         (the widest gap and the frames' median);
   reproj_chi2_p50       the map's keyframe poses and points rounded to
                         bfloat16;
-  traj_ate_m            (not compared) the trajectory composed with
-                        those poses and its relative poses in bfloat16.
+  traj_ate_m            the trajectory composed with those poses and its
+                        relative poses in bfloat16;
+  checks/<key>.py       each file's own control(j), or else the
+                        program's number (harness/loops.py: the Sim3 and
+                        essential-graph references in bfloat16).
 
 The benchmark's own runs never run this.  The lower reading of a limit
 is the largest a dozen or more seeds give for the program, the upper
@@ -31,12 +34,13 @@ from pathlib import Path
 import run
 
 
-def main(argv=None) -> None:
+def main(argv=None, spec=None) -> None:
+    """`spec`: a harness.spec.Spec built in memory (loop_study.py)."""
     argv = sys.argv[1:] if argv is None else argv
     i = argv.index("--seconds")
     head, seeds = argv[:i + 2], argv[i + 2:]
     for seed in seeds:
-        out = run.main(head + ["--seed", seed, "--trace", "0"],
+        out = run.main(head + ["--seed", seed, "--trace", "0"], spec=spec,
                        controls=True)
         print(json.dumps({"control_run": True, "seed": int(seed),
                           "correct": out["correct"],

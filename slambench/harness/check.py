@@ -42,9 +42,10 @@ from what `FrameCatcher` copied during the window:
                         keyframe (a cycle of culled ones), so that
                         ORB-SLAM2's SaveTrajectory* could not write it.
 
-Each is compared with its limit in `limits/<workload>.json`.  The
-trajectory's error against the generator's truth (`traj_ate_m`) is
-reported beside them and not compared: no control moves it (PERF.md).
+Each is compared with its limit in `limits/<workload>.json`, whose keys
+may also name numbers of files in `checks/` (run.py).  The trajectory's
+error against the generator's truth (`traj_ate_m`) is reported beside
+them; a cell compares it through `checks/traj_ate_m.py`.
 The control (`readings(controls=True)`) reads the same numbers with the
 reference in the program's place in bfloat16: the frontend's levels, the
 pose solve, and the map's poses and points.
@@ -60,6 +61,9 @@ import torch
 
 from reference import orb, pose_lm, truth
 
+READINGS = ("frontend_rows_differ", "track_pose_gap_mm", "track_pose_gap_deg",
+            "track_pose_gap_mm_median", "track_pose_gap_deg_median",
+            "reproj_chi2_p50", "loops_closed", "frames_unresolved")
 STORE_KEYS = ("kf_valid", "kf_pose", "kf_Tcp", "kf_parent", "kf_timestamp",
               "kf_xy", "kf_ur", "kf_depth", "kf_octave", "kf_angle",
               "kf_desc", "kf_feat_valid", "kf_obs", "pt_valid", "pt_pos")

@@ -6,7 +6,8 @@
 Run from the root of a checkout that holds the port.  One process runs
 one cell of BENCHMARK.json once, on one CUDA card:
 
-  1. set-up: build or load the port's kernels (their build directories
+  1. set-up: one thread in each host math pool (`_set_host_threads`),
+     build or load the port's kernels (their build directories
      lie inside the checkout), render the cell's frames from the seed on
      the card and copy them to the host, load the configuration's
      vocabulary (trained from its fixed views on a checkout's first run),
@@ -21,9 +22,22 @@ one cell of BENCHMARK.json once, on one CUDA card:
      the compared numbers on standard error and, last on standard output,
      one JSON line.
 
+The compared numbers are the keys of the cell's limits.  A key that
+harness/check.py's `readings` does not give is read by its file
+`checks/<key>.py` (harness/spec.py finds it): its `read(j)` after the
+judging of step 4, and its `control(j)` for control.py (without one the
+control reads the program's number).  A file may name a `catcher`,
+called as catcher(system) once the System is precompiled and before the
+window (files naming the same catcher share one), whose `detach()` is
+called after shutdown.  j has snap (check.snapshot), frames, truth_poses,
+cfg, seed, device, values (check.readings' numbers), info (the detail),
+controls (the control's readings, or None), catch (the file's catcher,
+or None) and cache (a dict the run's files share).
+
 Exits non-zero, with no result line, without a card (unless `--device
 cpu`, which exists only for the folder's own CPU tests), when the port is
-missing, and when `jax`, `jaxlib`, `flax` or the JAX package is loaded.
+missing, when a limits key has neither a reading nor a file, and when
+`jax`, `jaxlib`, `flax` or the JAX package is loaded.
 """
 
 import time
@@ -46,12 +60,27 @@ CACHE = HERE / ".cache"
 FORBIDDEN = ("jax", "jaxlib", "flax", "orb_slam2_tpu")
 PORT = "orb_slam2_tpu_torch"
 SENSOR_CALL = {"stereo": "track_stereo", "rgbd": "track_rgbd"}
+HOST_THREADS = 1
 
 
 def _set_cache_dirs() -> None:
     """Every kernel cache at a fixed path inside the checkout."""
     os.environ["TORCH_EXTENSIONS_DIR"] = str(CACHE / "torch_extensions")
     os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
+
+
+def _set_host_threads() -> None:
+    """One thread in each host math pool (PyTorch's OpenMP, MKL,
+    OpenBLAS), set before numpy or torch loads.  The System's host work
+    runs on its own threads: tracking on the caller's, local mapping and
+    loop closing on theirs.  A pool of a thread a core beside them spins
+    on the cores those threads need, and a frame's call then waits on
+    whichever pool the mapper last woke (on the H100's 8-core host the
+    frames that overlap a mapped keyframe took a median 29-39 ms with
+    the default pools and 14-17 ms with one thread)."""
+    for name in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
+                 "OPENBLAS_NUM_THREADS"):
+        os.environ[name] = str(HOST_THREADS)
 
 
 def log(msg: str) -> None:
@@ -66,6 +95,25 @@ def forbidden_modules() -> list:
     with the JAX package's)."""
     return sorted({m.split(".")[0] for m in list(sys.modules)}
                   & set(FORBIDDEN))
+
+
+def find_checks(spec, limits: dict) -> dict:
+    """{key: module of checks/} for each limits key that
+    harness/check.py's `readings` does not give; exits where one has no
+    file."""
+    from harness import check
+
+    out = {}
+    for name in limits:
+        if name in check.READINGS:
+            continue
+        mod = spec.check(name)
+        if mod is None:
+            sys.exit(f"slambench: the limit on {name!r} has no reading in "
+                     f"harness/check.py and no file checks/{name}.py; no "
+                     "result")
+        out[name] = mod
+    return out
 
 
 def parse(argv):
@@ -193,9 +241,14 @@ def main(argv=None, spec=None, controls: bool = False) -> dict:
     if not (ROOT / PORT / "__init__.py").exists():
         sys.exit(f"slambench: the port {PORT}/ is not in this checkout")
     _set_cache_dirs()
+    _set_host_threads()
+    limits = spec.limits(cell["name"])
+    checks = find_checks(spec, limits)
 
     import torch
 
+    threads = torch.get_num_threads()   # torch may have loaded before
+    torch.set_num_threads(HOST_THREADS)
     if args.device == "cuda":
         if not torch.cuda.is_available():
             sys.exit("slambench: torch.cuda.is_available() is false")
@@ -252,6 +305,11 @@ def main(argv=None, spec=None, controls: bool = False) -> dict:
     catcher = check.FrameCatcher(
         system, args.seconds, fps, args.seed, int(cfg["check"]["frames"]),
         quiet_notes=10 if settings.pipelined else 2)
+    catchers = {}
+    for mod in checks.values():
+        make = getattr(mod, "catcher", None)
+        if make is not None and make not in catchers:
+            catchers[make] = make(system)
     profile = None
     sub = None
     if args.trace:
@@ -282,6 +340,9 @@ def main(argv=None, spec=None, controls: bool = False) -> dict:
         trace={}, bounds={})
     snap = check.snapshot(system)
     system.shutdown()
+    torch.set_num_threads(threads)
+    for c in catchers.values():
+        c.detach()
     catcher.system = catcher.seen = None
     del system, track
     gc.collect()
@@ -300,8 +361,17 @@ def main(argv=None, spec=None, controls: bool = False) -> dict:
     got = check.readings(snap, frames, poses, cfg, attempted, args.seed,
                          device, caught=catcher.caught, controls=controls)
     values, info = got[0], got[1]
-    limits = json.loads((spec.dir / "limits" / f"{cell['name']}.json")
-                        .read_text())["limits"]
+    ctrl = got[2] if controls else None
+    j = SimpleNamespace(snap=snap, frames=frames, truth_poses=poses,
+                        cfg=cfg, seed=args.seed, device=device,
+                        values=values, info=info, controls=ctrl, catch=None,
+                        cache={})
+    for name, mod in checks.items():
+        j.catch = catchers.get(getattr(mod, "catcher", None))
+        values[name] = mod.read(j)
+        if controls:
+            ctrl[name] = (mod.control(j) if hasattr(mod, "control")
+                          else values[name])
     correct, compared = check.judge(values, limits)
 
     metrics = {}
@@ -360,8 +430,8 @@ def main(argv=None, spec=None, controls: bool = False) -> dict:
     print(json.dumps(out))
     sys.stdout.flush()
     if controls:
-        out = dict(out, controls=got[2], detail=detail,
-                   control_correct=check.judge(got[2], limits)[0])
+        out = dict(out, controls=ctrl, detail=detail,
+                   control_correct=check.judge(ctrl, limits)[0])
     return out
 
 

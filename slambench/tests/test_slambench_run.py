@@ -28,7 +28,21 @@ def _run(workload="tiny-stereo.open", trace=0, controls=False, capsys=None):
 
 @pytest.fixture(scope="module")
 def plain_run():
-    return _run(controls=True)
+    """The run, with the host threads that its window ran on."""
+    from harness import drive
+
+    run_window, seen = drive.run_window, {}
+
+    def counting(*a, **k):
+        seen["threads"] = torch.get_num_threads()
+        return run_window(*a, **k)
+
+    drive.run_window = counting
+    try:
+        out = _run(controls=True)
+    finally:
+        drive.run_window = run_window
+    return dict(out, window_threads=seen["threads"])
 
 
 def test_result_line_keys(plain_run, capsys):
@@ -49,6 +63,18 @@ def test_result_line_keys(plain_run, capsys):
         "track_pose_gap_mm_median", "track_pose_gap_deg_median",
         "reproj_chi2_p50", "loops_closed", "frames_unresolved"}
     assert len(out["detail"]["frames_caught"]) == 4
+
+
+def test_the_window_runs_on_one_host_thread(plain_run):
+    """One thread in each host math pool while the System runs, and the
+    caller's count back once it is shut down."""
+    import os
+
+    assert plain_run["window_threads"] == run.HOST_THREADS == 1
+    assert torch.get_num_threads() == 2
+    for name in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
+                 "OPENBLAS_NUM_THREADS"):
+        assert os.environ[name] == "1"
 
 
 def test_the_controls_fail_their_limits(plain_run):
